@@ -49,8 +49,9 @@ class _Comm:
     """Stacked-mode collectives (party axis = leading batch axis)."""
 
     def halo(self, send: torch.Tensor) -> torch.Tensor:
-        # send[i, j] = party i's update rows for party j -> recv[j, i]
-        return send.transpose(0, 1)
+        # send[..., i, j, :, :] = party i's update rows for party j ->
+        # recv[..., j, i, :, :] (leading axes, e.g. the share axis, ride along)
+        return send.transpose(-4, -3)
 
 
 @dataclasses.dataclass
@@ -91,9 +92,44 @@ def _plan_arrays(t: Dict[str, torch.Tensor]) -> _PlanArrays:
                        gather_ok_from=ok & ~eye[..., None])
 
 
+def gcn_metrics(arr: _PlanArrays,
+                prob: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per-party loss, accuracies and border count of ``prob [P, V, C]``:
+    the plaintext metric definitions, which the secret-shared engine uses on
+    its revealed prediction too."""
+    valid = arr.vertex_mask
+    train = arr.train_mask
+    test = valid & ~arr.train_mask & ~arr.val_mask
+    border = arr.border
+
+    y_hot = torch.nn.functional.one_hot(arr.labels, prob.shape[-1]).to(
+        prob.dtype)
+    clamped = torch.where(prob == 0.0, 0.001, prob)
+    loss_rows = -(y_hot * torch.log(clamped)).sum(-1)
+    loss = torch.where(valid, loss_rows, 0.0).sum(-1) / arr.num_local
+
+    hit = prob.argmax(-1) == arr.labels
+
+    def acc(mask):
+        n = mask.sum(-1)
+        return torch.where(n > 0, (hit & mask).sum(-1) / n.clamp(min=1), 0.0)
+
+    return {
+        "loss": loss,
+        "full_acc": acc(valid),
+        "train_acc": acc(train),
+        "border_train_acc": acc(train & border),
+        "test_acc": acc(test),
+        "border_test_acc": acc(test & border),
+        "num_border": (valid & border).sum(-1),
+    }
+
+
 def _take_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """h [P, V, D], idx [P, E] -> [P, E, D] with [p, e] = h[p, idx[p, e]]."""
-    return h[torch.arange(h.shape[0], device=h.device)[:, None], idx]
+    """h [..., P, V, D], idx [P, E] -> [..., P, E, D] with [..., p, e] =
+    h[..., p, idx[p, e]] (leading axes, e.g. the share axis, ride along)."""
+    p = torch.arange(h.shape[-3], device=h.device)[:, None]
+    return h[..., p, idx, :]
 
 
 def _party_edges(plan: DevicePlan, p: int):
@@ -220,37 +256,6 @@ class GasEngine:
         return agg * norm0(arr.in_deg)[..., None] if dest_scale else agg
 
     # ------------------------------------------------------------------
-    def _metrics(self, arr: _PlanArrays,
-                 prob: torch.Tensor) -> Dict[str, torch.Tensor]:
-        valid = arr.vertex_mask
-        train = arr.train_mask
-        test = valid & ~arr.train_mask & ~arr.val_mask
-        border = arr.border
-
-        y_hot = torch.nn.functional.one_hot(arr.labels, prob.shape[-1]).to(
-            prob.dtype)
-        clamped = torch.where(prob == 0.0, 0.001, prob)
-        loss_rows = -(y_hot * torch.log(clamped)).sum(-1)
-        loss = torch.where(valid, loss_rows, 0.0).sum(-1) / arr.num_local
-
-        hit = prob.argmax(-1) == arr.labels
-
-        def acc(mask):
-            n = mask.sum(-1)
-            return torch.where(n > 0, (hit & mask).sum(-1) / n.clamp(min=1),
-                               0.0)
-
-        return {
-            "loss": loss,
-            "full_acc": acc(valid),
-            "train_acc": acc(train),
-            "border_train_acc": acc(train & border),
-            "test_acc": acc(test),
-            "border_test_acc": acc(test & border),
-            "num_border": (valid & border).sum(-1),
-        }
-
-    # ------------------------------------------------------------------
     def _forward_body(self, comm: _Comm, arr: _PlanArrays,
                       weights: List[torch.Tensor], x0: torch.Tensor):
         """Inference: L forward phases; returns (logits, prob, metrics)."""
@@ -263,7 +268,7 @@ class GasEngine:
             z = self._aggregate(comm, arr, h, dest_scale=True)
             h = torch.relu(z) if l != self.L - 1 else z
         prob = torch.softmax(h, dim=-1)
-        return h, prob, self._metrics(arr, prob)
+        return h, prob, gcn_metrics(arr, prob)
 
     # ------------------------------------------------------------------
     # public API

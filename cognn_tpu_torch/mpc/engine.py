@@ -1,0 +1,237 @@
+"""Secret-shared GAS engine on PyTorch (port of ``cognn_tpu/mpc/engine.py``):
+CoGNN-Opt full-graph inference on additive shares in Z_2^64, all P parties
+stacked on one device.
+
+Every vertex embedding and weight is a share pair ``int64[2, P, ...]``
+(:mod:`cognn_tpu_torch.mpc.protocol`). Per layer l the forward runs, as
+``cognn_tpu/mpc/engine.py:1127-1165`` does for the opt variants:
+
+  * PreScatter: the shared matmul H·W, one launch of the exact mod-2^64
+    kernel for all parties (layer 0 takes the hoisted reconstruct of x0);
+  * the source-side ``norm0`` scale with truncation, skipped on layer 0;
+  * aggregation, linear on the shares (never reconstructs), then the
+    destination-side scale;
+  * ReLU by sign mask, or on the last layer the reveal, softmax and metrics.
+
+Aggregation backends (``aggregation=``):
+
+  * ``"bcsr"`` (and ``"auto"``) — the ring instantiation of the CUDA SpMM
+    (:meth:`cognn_tpu_torch.ops.spmm.Spmm.ring`) over the flat (P·V)×(P·V)
+    edge-count matrix, both shares in one launch. On CPU tensors it runs the
+    kernel's plain version.
+  * ``"sparse"`` — plain torch port of the share OGA: masked gathers of the
+    local and remote slots, int64 ``index_add_`` segment sums (they wrap mod
+    2^64, so the JAX package's 16-bit planes and its 2^15 segment cap have
+    no counterpart), the halo transpose on the party axis, the scatter of
+    mirror rows and the masked gather adds.
+
+Training (``variant="opt"``, ``run_epoch``), the unopt variants, the dense
+backend and the sharded mode come with later slices of the port and raise
+``NotImplementedError``. The JAX package's TPU workarounds (uint32 limbs,
+byte planes and their exactness guards, ``compile_mode="phase"``,
+``prng_impl``, the fusion barrier) are not ported.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from cognn_tpu_torch.config import GNNParam
+from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
+from cognn_tpu_torch.engine.gas import (
+    GasEngine,
+    _build_spmm_stacked,
+    _Comm,
+    _plan_arrays,
+    _PlanArrays,
+    _take_rows,
+    gcn_metrics,
+    norm0,
+)
+from cognn_tpu_torch.engine.plan import DevicePlan, plan_tensors, set_split
+from cognn_tpu_torch.mpc.protocol import Protocol
+from cognn_tpu_torch.ops.aggregate import segment_sum_rows
+from cognn_tpu_torch.utils.device import resolve_device
+from cognn_tpu_torch.utils.glibc_rand import glorot_init
+
+
+class MpcGasEngine:
+    """Secret-shared GAS engine over a :class:`DevicePlan`, parties stacked
+    on one device; ``variant="opt_inference"``.
+
+    ``fp``: fixed-point spec (64-bit ring, 16 fractional bits by default).
+    ``truncation``: "exact" or "probabilistic". ``seed``: the Glorot
+    weights' seed; ``prng_seed``: the share randomness' seed (one
+    ``torch.Generator`` the engine owns). ``aggregation``: "auto"/"bcsr"
+    (the ring SpMM kernel) or "sparse" (plain torch). ``nonlinear``: the
+    sign extraction, "reconstruct" or "bitdecomp". ``device`` defaults to
+    "cuda" and raises when there is no card.
+    """
+
+    def __init__(self, plan: DevicePlan, param: GNNParam,
+                 variant: str = "opt_inference",
+                 fp: FixedPointSpec | None = None,
+                 truncation: str = "exact", seed: int = 42,
+                 prng_seed: int = 0, mode: str = "stacked",
+                 aggregation: str = "auto", nonlinear: str = "reconstruct",
+                 device="cuda"):
+        if variant == "opt":
+            raise NotImplementedError(
+                "secret-shared training (variant 'opt', run_epoch) comes "
+                "with the secret-shared training slice of the port")
+        if variant in ("unopt", "unopt_inference"):
+            raise NotImplementedError(
+                f"variant {variant!r} comes with the unopt slice of the port")
+        if variant != "opt_inference":
+            raise ValueError(variant)
+        if mode != "stacked":
+            raise NotImplementedError(
+                f"mode {mode!r} comes with the sharded slice of the port "
+                "(torch.distributed)")
+        if aggregation == "dense":
+            raise NotImplementedError(
+                "aggregation 'dense' comes with the dense-backend slice of "
+                "the port")
+        if aggregation not in ("auto", "bcsr", "sparse"):
+            raise ValueError(aggregation)
+        self.device = resolve_device(device)
+        set_split(plan, param.train_ratio, param.val_ratio)
+        self.plan = plan
+        self.param = param
+        self.proto = Protocol(fp or FixedPointSpec(), truncation,
+                              nonlinear=nonlinear)
+        self.L = param.num_layers
+        self.P = plan.num_parties
+        tensors = plan_tensors(plan, self.device)
+        self.arr: _PlanArrays = _plan_arrays(tensors)
+        self.aggregation = "sparse" if aggregation == "sparse" else "bcsr"
+        self.spmm = (_build_spmm_stacked(plan, self.device)
+                     if self.aggregation == "bcsr" else None)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(prng_seed)
+
+        # share the pre-normalized features and the Glorot weights (one
+        # replica per party, as the reference keeps them)
+        x0_sh = self.proto.share(self._gen, tensors["features"])
+        dims = param.layer_dims
+        weights_sh = [
+            self.proto.share(self._gen, torch.as_tensor(
+                glorot_init(dims[i], dims[i + 1], seed), dtype=torch.float32,
+                device=self.device).expand(self.P, dims[i], dims[i + 1]))
+            for i in range(self.L)
+        ]
+        # public fixed-point normalizers (norm0 quirk preserved)
+        n0_fp = self.proto.encode_public(norm0(self.arr.in_deg))
+        self.install_state(x0_sh, weights_sh, n0_fp)
+
+    def install_state(self, x0_sh: torch.Tensor,
+                      weights_sh: Sequence[torch.Tensor],
+                      n0_fp: torch.Tensor) -> None:
+        """Set the shared features ``[2, P, V, F]``, the shared weights
+        (``[2, P, d_in, d_out]`` per layer) and the encoded normalizers
+        ``[P, V]`` (all int64 on this engine's device), e.g. from
+        :func:`cognn_tpu_torch.convert.mpc_state_from_jax`, and redo the
+        layer-0 hoist."""
+        P, V = self.P, self.plan.V
+        dims = self.param.layer_dims
+        want = [("x0_sh", x0_sh, (2, P, V, dims[0])),
+                ("n0_fp", n0_fp, (P, V))]
+        if len(weights_sh) != self.L:
+            raise ValueError(f"{len(weights_sh)} weight layers for "
+                             f"{self.L} layers")
+        want += [(f"weights_sh[{l}]", w, (2, P, dims[l], dims[l + 1]))
+                 for l, w in enumerate(weights_sh)]
+        for name, t, shape in want:
+            if tuple(t.shape) != shape or t.dtype != torch.int64 \
+                    or t.device.type != self.device.type:
+                raise ValueError(f"{name}: expected int64 {shape} on "
+                                 f"{self.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+        self.x0_sh = x0_sh
+        self.weights_sh: List[torch.Tensor] = list(weights_sh)
+        self.n0_fp = n0_fp
+        # the layer-0 A side is loop-invariant: reconstruct x0 once
+        # (cognn_tpu/mpc/engine.py:591-597)
+        self.x0_prep = self.proto.prep_matmul_a(x0_sh)
+
+    # ------------------------------------------------------------------
+    def _scale_rows(self, sh: torch.Tensor,
+                    scalars_fp: torch.Tensor) -> torch.Tensor:
+        """sh [2, P, V, D] * public fp scalars [P, V] (broadcast over D)."""
+        return self.proto.scale_rows(self._gen, sh, scalars_fp[..., None])
+
+    def _aggregate(self, arr: _PlanArrays, sh: torch.Tensor,
+                   dest_scale: bool) -> torch.Tensor:
+        """Share-space Â application (scatter -> OGA -> halo -> gather)."""
+        plan = self.plan
+        V, M, P = plan.V, plan.M, plan.num_parties
+        D = sh.shape[-1]
+        proto = self.proto
+
+        if self.spmm is not None:
+            # gather/OGA/halo/gather in one kernel over the flat edge matrix
+            upd = self.spmm.ring(sh.reshape(2, P * V, D))
+            agg = proto.add(sh, upd.reshape(sh.shape))
+            return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
+
+        # local slots: gather rows, mask dummies, segment-sum by destination
+        lvals = proto.mask_mul(_take_rows(sh, arr.loc_src),
+                               arr.loc_valid[..., None])
+        loc_upd = segment_sum_rows(lvals, arr.loc_seg.expand(2, -1, -1),
+                                   V + 1)[:, :, :V]
+
+        # remote slots -> per-destination-party mirror rows
+        rvals = proto.mask_mul(_take_rows(sh, arr.rem_src),
+                               arr.rem_valid[..., None])
+        send = segment_sum_rows(rvals, arr.rem_seg.expand(2, -1, -1),
+                                P * M + 1)[:, :, :P * M]
+        # halo exchange: recv[:, me, i] = send[:, i, me]
+        # (mirror-update shipping, ss_…h:1089-1100)
+        recv = _Comm().halo(send.reshape(2, P, P, M, D))
+
+        # scatter mirror rows into local order (unique targets per pair)
+        tgt = torch.where(arr.recv_mask, arr.recv_target, V)
+        rows = proto.mask_mul(recv, arr.recv_mask[..., None])
+        rem_upd = segment_sum_rows(rows, tgt.expand(2, -1, -1, -1),
+                                   V + 1)[..., :V, :]  # [2, P, Pfrom, V, D]
+
+        # gather: base + masked adds (cond-vector-addition on shares)
+        agg = proto.add(sh, proto.mask_mul(loc_upd,
+                                           arr.gather_ok_self[..., None]))
+        agg = proto.add(agg, proto.mask_mul(
+            rem_upd, arr.gather_ok_from[..., None]).sum(dim=2))
+        return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
+
+    # ------------------------------------------------------------------
+    @torch.no_grad()
+    def forward(self):
+        """Full-graph inference in share space: (revealed logits f32
+        [P, V, C], prob, metrics)."""
+        proto, gen = self.proto, self._gen
+        h = None
+        for l in range(self.L):
+            if l == 0:
+                h = proto.matmul_prepped(gen, self.x0_prep,
+                                         self.weights_sh[0])
+            else:
+                h = proto.matmul(gen, h, self.weights_sh[l])
+                h = self._scale_rows(h, self.n0_fp)
+            h = self._aggregate(self.arr, h, dest_scale=True)
+            if l != self.L - 1:
+                h = proto.relu(h)
+        z = proto.reveal(h)
+        prob = torch.softmax(z, dim=-1)
+        return z, prob, gcn_metrics(self.arr, prob)
+
+    def run_epoch(self):
+        raise NotImplementedError(
+            "secret-shared training epochs come with the secret-shared "
+            "training slice of the port")
+
+    @torch.no_grad()
+    def reveal_weights(self) -> List[torch.Tensor]:
+        return [self.proto.reveal(w) for w in self.weights_sh]
+
+    metrics_host = staticmethod(GasEngine.metrics_host)

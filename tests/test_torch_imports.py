@@ -49,10 +49,11 @@ def test_package_import_loads_no_jax():
 
 
 def test_entry_points_raise_without_card():
-    from cognn_tpu_torch.convert import weights_from_jax
+    from cognn_tpu_torch.convert import mpc_state_from_jax, weights_from_jax
     from cognn_tpu_torch.engine import GasEngine, build_device_plan
     from cognn_tpu_torch.graph import build_party_graph
     from cognn_tpu_torch.harness.datasets import synthetic_planetoid
+    from cognn_tpu_torch.mpc import MpcGasEngine
 
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -64,3 +65,12 @@ def test_entry_points_raise_without_card():
         GasEngine(build_device_plan([g]), ds.param)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         weights_from_jax([])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MpcGasEngine(build_device_plan([g]), ds.param)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mpc_state_from_jax(None, [], None)
+
+
+def test_scan_covers_every_subpackage():
+    scanned = {p.parent.name for p in PORT_FILES}
+    assert {"core", "mpc", "ops", "engine"} <= scanned
