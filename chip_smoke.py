@@ -33,6 +33,20 @@
    the plaintext port's and within 1e-2 of its largest logit; metrics must
    be finite. One more request of each
    is profiled (device time by kernel against wall time).
+6. Holds the block-merged tensor-core SpMM (K4) and the SDDMM (K5) against
+   their plain versions on each cell's flat edges at both widths (K4 also
+   on the repeated edges) and times them, with ``torch.sparse.mm`` on the
+   bf16-rounded CSR and ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) as
+   the library calls.
+7. Drives the slice-3 path: the aggregation-kernel microbenchmark
+   (``cognn_tpu_torch.tools.bench_spmm``) at its defaults (V = 32768,
+   E = 131072, D = 16, band 2048). The CSR kernel's, K4's and K5's counts
+   are set to 0 just before and read just after: each must have launched
+   exactly as often as the tool called it, and the tool raises unless each
+   output lies within 1e-5 (CSR, K5) or 5e-3 (K4, bf16 operands) of its
+   float64 oracle. Then the tool's own K4 and K5 are held and timed as in
+   step 6 (K5 on the tool's edges, duplicates and order as they come, and
+   on its ``h`` as both operands).
 
 The line before the last is one JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -52,9 +66,16 @@ from pathlib import Path
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
+from cognn_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms
+
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 sums in another order
+# K4 and K5: the same exact products (bf16 x bf16 on the tensor cores, or
+# f32 FMAs) summed in f32 in another order; atol as a share of max|plain|
+SUM_ORDER_TOL = dict(rtol=1e-5, atol_of_max=1e-5)
+SPMM_MERGED_REPLACES = "cognn_tpu/ops/pallas_spmm.py:348"
+SDDMM_REPLACES = "cognn_tpu/ops/pallas_sddmm.py:29"
 # kernel vs plain sparse backend through two layers, as a share of the
 # largest reference logit (PubMed's logits are near uniform and small)
 LOGITS_TOL_OF_MAX = 1e-4
@@ -158,7 +179,8 @@ def wrap_check() -> None:
     a = rng.integers(0, 1 << 64, 4096, dtype=np.uint64)
     b = rng.integers(0, 1 << 64, 4096, dtype=np.uint64)
     idx = rng.integers(0, 50, 4096)
-    ta, tb = ring_from_u64(a, "cuda"), ring_from_u64(b, "cuda")
+    ta = ring_from_u64(a, device="cuda")
+    tb = ring_from_u64(b, device="cuda")
     want_add = np.zeros(50, np.uint64)
     np.add.at(want_add, idx, a)
     got_add = torch.zeros(50, dtype=torch.int64, device="cuda").index_add_(
@@ -178,24 +200,6 @@ def wrap_check() -> None:
           "uint64", flush=True)
 
 
-def device_ms(fn, calls: int = TIMED_CALLS) -> float:
-    """Device time of one ``fn()``: CUDA events around ``calls`` back-to-back
-    calls, queued behind a sleep kernel so host launch overhead leaves no
-    gaps on the device. Inputs stay L2-resident (warm), as in the forward."""
-    for _ in range(5):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(50_000_000)  # ~25 ms: time to queue the calls
-    start.record()
-    for _ in range(calls):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / calls
-
-
 def make_plan(dataset: str, parties: int):
     from cognn_tpu_torch.engine import build_device_plan
     from cognn_tpu_torch.graph import build_party_graph
@@ -213,16 +217,23 @@ def make_plan(dataset: str, parties: int):
     return build_device_plan(graphs), ds.param
 
 
+def csr_edges(spmm):
+    """The edges of ``spmm``'s CSR, destination-major with sources
+    ascending, each as often as its count."""
+    indptr = spmm.indptr.cpu().numpy()
+    src = spmm.indices.cpu().numpy().astype(np.int64)
+    dst = np.repeat(np.arange(spmm.n_dst), np.diff(indptr))
+    counts = spmm.counts.cpu().numpy().astype(np.int64)
+    return np.repeat(src, counts), np.repeat(dst, counts)
+
+
 def with_repeats(spmm):
     """An Spmm at ``spmm``'s shape over its edges with the first quarter
     appended twice more: those entries get counts of 3 (the synthetic
     graphs have no repeated edge), and the padding rows stay empty."""
     from cognn_tpu_torch.ops.spmm import Spmm
 
-    indptr = spmm.indptr.cpu().numpy()
-    src = np.repeat(spmm.indices.cpu().numpy(),
-                    spmm.counts.cpu().numpy().astype(np.int64))
-    dst = np.repeat(np.arange(spmm.n_dst), np.diff(indptr))
+    src, dst = csr_edges(spmm)
     k = len(src) // 4
     src = np.concatenate([src, src[:k], src[:k]])
     dst = np.concatenate([dst, dst[:k], dst[:k]])
@@ -236,7 +247,8 @@ def with_repeats(spmm):
 
 def held(what: str, got, want, tol) -> float:
     """Raises unless ``got`` equals ``want`` (``tol`` None: ``torch.equal``,
-    for the integer kernels) or is close to it (``assert_close(**tol)``);
+    for the integer kernels) or is close to it (``assert_close(**tol)``,
+    where ``atol_of_max`` stands for an atol of that share of max|want|);
     returns max |got - want|."""
     err = float((got - want).abs().max().item()) if want.numel() else 0.0
     if tol is None:
@@ -244,13 +256,19 @@ def held(what: str, got, want, tol) -> float:
             raise AssertionError(f"{what}: differs from its plain version "
                                  f"by up to {err!r}")
     else:
+        tol = dict(tol)
+        if "atol_of_max" in tol:
+            scale = want.abs().max().item() if want.numel() else 0.0
+            tol["atol"] = tol.pop("atol_of_max") * scale
         torch.testing.assert_close(got, want, **tol)
     return err
 
 
 def measure(label: str, cases, tol, plain_calls: int = TIMED_CALLS) -> dict:
     """One kernel at each shape of ``cases``, an iterable of (shape, kernel
-    fn, plain fn, library fn or None, bytes, operation ms). Holds the kernel
+    fn, plain fn, library, bytes, operation ms); ``library`` is None, a
+    library fn, or a pair (library fn, map of its output onto the plain
+    version's layout, applied outside the timed call). Holds the kernel
     and the library call against the plain version (:func:`held`), times all
     three and takes the bound as the larger of bytes over the memory rate
     and the operation time. Returns the per-forward sums; ``library_ms`` is
@@ -262,6 +280,8 @@ def measure(label: str, cases, tol, plain_calls: int = TIMED_CALLS) -> dict:
     library_error = None
     bound_by = set()
     for shape, kernel, plain, library, nbytes, t_ops in cases:
+        library, view = (library if isinstance(library, tuple)
+                         else (library, lambda out: out))
         want = plain()
         err = held(f"{label} {shape}", kernel(), want, tol)
         library_ms = None
@@ -272,9 +292,9 @@ def measure(label: str, cases, tol, plain_calls: int = TIMED_CALLS) -> dict:
             except (RuntimeError, NotImplementedError) as e:
                 library_error = str(e).strip().splitlines()[0]
             else:
-                held(f"{label} {shape} library", lib, want, tol)
-                library_ms = device_ms(library)
-        ms = device_ms(kernel)
+                held(f"{label} {shape} library", view(lib), want, tol)
+                library_ms = device_ms(library, TIMED_CALLS)
+        ms = device_ms(kernel, TIMED_CALLS)
         plain_ms = device_ms(plain, plain_calls)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         bound_by.add("bytes" if t_bytes >= t_ops else "operations")
@@ -351,7 +371,7 @@ def ring_spmm_phase(cell: str, spmm, dup, widths, mac_ms: float) -> dict:
     def cases():
         for D in widths:
             h = ring_from_u64(rng.integers(0, 1 << 64, (S, n_src, D),
-                                           dtype=np.uint64), "cuda")
+                                           dtype=np.uint64), device="cuda")
             h2 = h.transpose(0, 1).reshape(n_src, S * D)
             held(f"ring kernel {cell} D={D} repeated edges", dup.ring(h),
                  spmm_plain(dup.indptr, dup.indices, dup.counts_i64, h), None)
@@ -377,9 +397,9 @@ def ring_matmul_operands(shape, rng) -> tuple:
 
     B, N, K, M = shape
     return (ring_from_u64(rng.integers(0, 1 << 64, (B, N, K),
-                                       dtype=np.uint64), "cuda"),
+                                       dtype=np.uint64), device="cuda"),
             ring_from_u64(rng.integers(0, 1 << 64, (B, K, M),
-                                       dtype=np.uint64), "cuda"))
+                                       dtype=np.uint64), device="cuda"))
 
 
 def ring_matmul_phase(cell: str, shapes, mac_ms: float) -> dict:
@@ -401,6 +421,131 @@ def ring_matmul_phase(cell: str, shapes, mac_ms: float) -> dict:
                    B * N * K * M * mac_ms)
 
     return measure(f"ring matmul {cell}", cases(), None, PLAIN_CALLS)
+
+
+def merged_phase(label: str, k, widths, dup=None) -> dict:
+    """K4 (``k``, a SpmmMerged on the card) at each width, measured with
+    ``torch.sparse.mm`` on the f32 CSR of the bf16-rounded counts and rows
+    (rounded outside the timed call) as the library call; also held against
+    its plain version on the edges of ``dup`` (a SpmmMerged at ``k``'s
+    shape, or None). The bound is the function's, as for the CSR kernel:
+    the CSR of the counts, H and out once, 2·nnz·D bf16 tensor-core
+    operations; the bytes of K4's own tiles (``tile_stream_bytes``) are a
+    cost of its design, reported beside it."""
+    from cognn_tpu_torch.ops.spmm_merged import spmm_merged_plain
+
+    rng = np.random.default_rng(4)
+    a_csr = torch.sparse_csr_tensor(
+        k.indptr.long(), k.indices.long(), k.counts.to(torch.bfloat16).float(),
+        size=(k.n_dst, k.n_src), check_invariants=True)
+    errs = []
+
+    def cases():
+        for D in widths:
+            h = torch.from_numpy(rng.standard_normal(
+                (k.n_src, D), dtype=np.float32)).cuda()
+            h16 = h.to(torch.bfloat16).float()
+            if dup is not None:
+                errs.append(held(
+                    f"merged kernel {label} D={D} repeated edges", dup(h),
+                    spmm_merged_plain(dup.indptr, dup.indices, dup.counts,
+                                      h), SUM_ORDER_TOL))
+                print(f"merged kernel {label} D={D} repeated edges: "
+                      f"nnz={dup.nnz} tiles={dup.n_tiles} max count="
+                      f"{dup.counts.max().item()!r} empty rows="
+                      f"{(dup.indptr.diff() == 0).sum().item()} "
+                      f"max_abs_err={errs[-1]!r}", flush=True)
+            yield (f"D={D} n={k.n_dst} nnz={k.nnz} tiles={k.n_tiles} "
+                   f"tile stream={k.tile_bytes} B",
+                   lambda: k(h),
+                   lambda: spmm_merged_plain(k.indptr, k.indices, k.counts,
+                                             h),
+                   lambda: torch.sparse.mm(a_csr, h16),
+                   4 * ((k.n_dst + 1) + 2 * k.nnz + (k.n_src + k.n_dst) * D),
+                   2 * k.nnz * D / BF16_TC_FLOPS_PER_S * 1e3)
+
+    tot = measure(f"merged kernel {label}", cases(), SUM_ORDER_TOL)
+    tot["max_abs_err"] = max(tot["max_abs_err"], *errs, 0.0)
+    tot["tile_stream_bytes"] = k.tile_bytes * len(widths)
+    return tot
+
+
+def sddmm_phase(label: str, k, operands) -> dict:
+    """K5 (``k``, an Sddmm on the card) on each (a, b) of ``operands``,
+    measured with ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) as the
+    library call: it takes a CSR pattern, so it runs on k's distinct edges
+    sorted by destination, then source, and its scores are held against
+    the plain version's through each edge's place in that pattern. The
+    bytes count both index arrays, the scores, and each distinct row
+    tensor once (``a is b`` on the microbenchmark)."""
+    from cognn_tpu_torch.ops.sddmm import sddmm_plain
+
+    src = k.src.cpu().numpy().astype(np.int64)
+    dst = k.dst.cpu().numpy().astype(np.int64)
+    keys, pos = np.unique(dst * k.n_src + src, return_inverse=True)
+    indptr = np.zeros(k.n_dst + 1, np.int64)
+    np.cumsum(np.bincount(keys // k.n_src, minlength=k.n_dst),
+              out=indptr[1:])
+    pattern = torch.sparse_csr_tensor(
+        torch.from_numpy(indptr).cuda(),
+        torch.from_numpy(keys % k.n_src).cuda(),
+        torch.ones(len(keys), device="cuda"), size=(k.n_dst, k.n_src),
+        check_invariants=True)
+    pos = torch.from_numpy(pos.reshape(-1)).cuda()
+
+    def cases():
+        for a, b in operands:
+            D = a.shape[1]
+            at = a.t().contiguous()
+            rows = a.numel() + (0 if b is a else b.numel())
+            yield (f"D={D} n={k.n_dst} edges={k.n_edges} "
+                   f"distinct={len(keys)}",
+                   lambda: k(a, b),
+                   lambda: sddmm_plain(k.src, k.dst, a, b),
+                   (lambda: torch.sparse.sampled_addmm(pattern, b, at,
+                                                       beta=0.0).values(),
+                    lambda vals: vals[pos]),
+                   12 * k.n_edges + 4 * rows,
+                   2 * k.n_edges * D / F32_FLOPS_PER_S * 1e3)
+
+    return measure(f"sddmm kernel {label}", cases(), SUM_ORDER_TOL)
+
+
+def random_operands(k, widths, seed: int):
+    """Random f32 (a [n_src, D], b [n_dst, D]) on the card, one pair per
+    width."""
+    rng = np.random.default_rng(seed)
+    for D in widths:
+        yield tuple(torch.from_numpy(rng.standard_normal(
+            (n, D), dtype=np.float32)).cuda() for n in (k.n_src, k.n_dst))
+
+
+def bench_phase():
+    """The slice's path: the aggregation-kernel microbenchmark
+    (``cognn_tpu_torch.tools.bench_spmm``) at its defaults, with the three
+    kernels' counts set to 0 just before and read just after. Each must
+    have launched exactly as often as the tool called it; the tool itself
+    raises when an output lies beyond its bound of the float64 oracle.
+    Returns the tool's case and the counts."""
+    from cognn_tpu_torch.tools import bench_spmm
+
+    t0 = time.perf_counter()
+    case = bench_spmm.setup(device="cuda")
+    print(f"setup bench: {time.perf_counter() - t0:.1f} s, V={case.v} "
+          f"E={len(case.src)} D={case.h.shape[1]} distinct edges="
+          f"{case.spmm.nnz} 16x16 tiles={case.merged.n_tiles}", flush=True)
+    kernels = {"spmm_csr_f32": case.spmm, "spmm_merged_bf16": case.merged,
+               "sddmm_f32": case.sddmm}
+    for k in kernels.values():
+        k.launches = 0
+    report = bench_spmm.run(case)
+    counts = {name: k.launches for name, k in kernels.items()}
+    if counts != report["calls"] or not all(counts.values()):
+        raise AssertionError(f"bench: kernel launches {counts}, the tool "
+                             f"called {report['calls']}")
+    print(f"bench: launches={counts} rel_err={report['rel_err']}",
+          flush=True)
+    return case, counts
 
 
 def reset_counts(spmms) -> None:
@@ -564,6 +709,8 @@ def main() -> None:
     from cognn_tpu_torch.mpc import MpcGasEngine
     from cognn_tpu_torch.ops import _build
     from cognn_tpu_torch.ops.intmatmul import ring_matmul, ring_matmul_plain
+    from cognn_tpu_torch.ops.sddmm import Sddmm
+    from cognn_tpu_torch.ops.spmm_merged import SpmmMerged
 
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -617,6 +764,12 @@ def main() -> None:
         n0_fp_check(cell, mpc)
         counts = mpc_forward_phase(cell, mpc, mpc_sparse, z_plain, spmms)
         profile_phase(f"{cell} mpc", mpc)
+        n_src, n_dst = engine.spmm.n_src, engine.spmm.n_dst
+        src, dst = csr_edges(engine.spmm)
+        merged_phase(cell, SpmmMerged(src, dst, n_src, n_dst, "cuda"), widths,
+                     SpmmMerged(*csr_edges(dup), n_src, n_dst, "cuda"))
+        k5 = Sddmm(src, dst, n_src, n_dst, "cuda")
+        sddmm_phase(cell, k5, random_operands(k5, widths, 5))
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{
@@ -650,6 +803,34 @@ def main() -> None:
                 f"[{b},{n},{k}]@[{b},{k},{m}]" for b, n, k, m in shapes),
             **k3,
         }]
+
+    case, bench_counts = bench_phase()
+    v, d = case.v, case.h.shape[1]
+    k4 = merged_phase("bench", case.merged, (d,))
+    k5 = sddmm_phase("bench", case.sddmm, [(case.h, case.h)])
+    bench_shape = (f"the tool's graph: V={v} E={len(case.src)} band 2048 "
+                   f"({case.spmm.nnz} distinct edges), D={d}")
+    kernels += [{
+        "name": "spmm_merged_bf16[bench]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/spmm_merged.cu",
+        "replaces": SPMM_MERGED_REPLACES,
+        "jax_path": "tools/bench_spmm.py:210-227 (--merged)",
+        "launches": bench_counts["spmm_merged_bf16"],
+        "shape": f"{bench_shape}, {case.merged.n_tiles} 16x16 bf16 tiles",
+        **k4,
+    }, {
+        "name": "sddmm_f32[bench]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/sddmm.cu",
+        "replaces": SDDMM_REPLACES,
+        "jax_path": "tools/bench_spmm.py:252-263",
+        "launches": bench_counts["sddmm_f32"],
+        "shape": f"{bench_shape}; scores of the tool's {len(case.src)} "
+                 f"edges in its order, on (h, h); sampled_addmm on the "
+                 f"{case.spmm.nnz} distinct ones",
+        **k5,
+    }]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,8 +34,8 @@ class RingSpec:
 RING64 = RingSpec(64)
 
 
-def ring_from_u64(x: np.ndarray, device="cpu") -> torch.Tensor:
-    """numpy uint64 -> int64 tensor with the same bits (host side)."""
+def ring_from_u64(x: np.ndarray, *, device) -> torch.Tensor:
+    """numpy uint64 -> int64 tensor with the same bits, on ``device``."""
     return torch.from_numpy(
         np.ascontiguousarray(x, dtype=np.uint64).view(np.int64)).to(device)
 

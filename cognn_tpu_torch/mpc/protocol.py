@@ -91,7 +91,7 @@ class Protocol:
     def sub(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return ring_sub(a, b)
 
-    def zeros(self, shape, device="cpu") -> torch.Tensor:
+    def zeros(self, shape, *, device) -> torch.Tensor:
         return torch.zeros((2, *shape), dtype=torch.int64, device=device)
 
     def mask_mul(self, sh: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:

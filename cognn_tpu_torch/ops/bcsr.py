@@ -1,4 +1,4 @@
-"""Sparse adjacency structure for the SpMM kernel (counterpart of
+"""Sparse adjacency structures for the SpMM kernels (counterpart of
 ``cognn_tpu/ops/bcsr.py``).
 
 The JAX package tiles the edge-count matrix into dense 128x128 blocks for the
@@ -6,6 +6,10 @@ TPU's matrix unit; on a 0.1%-dense graph those blocks are mostly zeros. The
 port keeps the same function, U = Aᵀ·H over an edge-count matrix A, but
 stores A as destination-sorted CSR: one entry per distinct (src, dst) pair
 with its multiplicity, so duplicate edges accumulate as in ``build_bcsr``.
+
+The block-merged tensor-core SpMM (``csrc/spmm_merged.cu``) takes A as
+small dense tiles instead (:func:`build_tiles_by_dst`), at an edge fitted to
+``mma.sync``, not to the TPU's 128x128 unit.
 """
 
 from __future__ import annotations
@@ -34,18 +38,72 @@ class CsrMatrix:
         return len(self.indices)
 
 
-def build_csr_by_dst(src: np.ndarray, dst: np.ndarray, n_src: int,
-                     n_dst: int) -> CsrMatrix:
-    """Edge list (duplicates accumulate into counts) -> destination CSR."""
+@dataclasses.dataclass
+class TileMatrix:
+    """The non-empty ``tile`` x ``tile`` tiles of a [n_src, n_dst]
+    edge-count matrix, sorted by destination tile, then source tile: the
+    tiles of destination tile t are ``tptr[t]:tptr[t+1]``. Each tile is
+    stored destination-major, ``vals[k, d % tile, s % tile]`` = count of
+    (s, d): the transpose of the JAX package's ``vals[k, src%128, dst%128]``.
+    """
+
+    tptr: np.ndarray  # int32[n_dst_tiles + 1]
+    tsrc: np.ndarray  # int32[n_tiles] source-tile index of each tile
+    vals: np.ndarray  # f32[n_tiles, tile, tile] edge counts (exact)
+    tile: int
+    n_src: int
+    n_dst: int
+
+    @property
+    def n_tiles(self) -> int:
+        return len(self.tsrc)
+
+
+def edge_arrays(src, dst, n_src: int, n_dst: int):
+    """Validated int64 edge arrays; indices must fit int32."""
     src = np.asarray(src, np.int64).reshape(-1)
     dst = np.asarray(dst, np.int64).reshape(-1)
     if len(src) != len(dst):
         raise ValueError(f"{len(src)} sources but {len(dst)} destinations")
     if max(n_src, n_dst) > _INT32_MAX or len(src) > _INT32_MAX:
-        raise ValueError("CSR indices are int32; the graph is too large")
+        raise ValueError("indices are int32; the graph is too large")
     if len(src) and (src.min() < 0 or src.max() >= n_src
                      or dst.min() < 0 or dst.max() >= n_dst):
         raise ValueError("edge endpoint out of range")
+    return src, dst
+
+
+def build_tiles_by_dst(src: np.ndarray, dst: np.ndarray, n_src: int,
+                       n_dst: int, tile: int) -> TileMatrix:
+    """Edge list (duplicates accumulate into counts) -> dense tiles of the
+    edge-count matrix (counterpart of ``build_bcsr`` with the run grouping
+    of ``PallasSpmmMerged``; the TPU grid's group size, supertiles, padding
+    and coverage groups have no counterpart: a destination tile with no
+    edge simply has no tile, and the kernel writes its rows zero)."""
+    src, dst = edge_arrays(src, dst, n_src, n_dst)
+    nst = -(-n_src // tile)
+    ndt = -(-n_dst // tile)
+    area = tile * tile
+    # one key per (tile, position in tile), tiles ordered by (dst, src) tile
+    key = ((dst // tile) * nst + src // tile) * area \
+        + (dst % tile) * tile + src % tile
+    pos, counts = np.unique(key, return_counts=True)
+    tkeys, tile_of = np.unique(pos // area, return_inverse=True)
+    vals = np.zeros((len(tkeys), area), np.float32)
+    vals[tile_of, pos % area] = counts
+    tptr = np.zeros(ndt + 1, np.int64)
+    np.cumsum(np.bincount(tkeys // max(nst, 1), minlength=ndt),
+              out=tptr[1:])
+    return TileMatrix(tptr=tptr.astype(np.int32),
+                      tsrc=(tkeys % max(nst, 1)).astype(np.int32),
+                      vals=vals.reshape(-1, tile, tile), tile=tile,
+                      n_src=n_src, n_dst=n_dst)
+
+
+def build_csr_by_dst(src: np.ndarray, dst: np.ndarray, n_src: int,
+                     n_dst: int) -> CsrMatrix:
+    """Edge list (duplicates accumulate into counts) -> destination CSR."""
+    src, dst = edge_arrays(src, dst, n_src, n_dst)
     uniq, counts = np.unique(dst * max(n_src, 1) + src, return_counts=True)
     dst_u = uniq // max(n_src, 1)
     indptr = np.zeros(n_dst + 1, np.int64)

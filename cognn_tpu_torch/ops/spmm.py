@@ -50,6 +50,29 @@ def _ring_kernel():
     return fn
 
 
+def check_rows(x: torch.Tensor, device: torch.device, dtype: torch.dtype,
+               n_rows: int, lead: int = 0, name: str = "h") -> bool:
+    """Validates a kernel operand ``x``: ``dtype``, [n_rows, D] after
+    ``lead`` leading axes, contiguous, on ``device`` (where the kernel's
+    structure lives). Returns True when it lies on the CPU (run the plain
+    version); raises for a device with no kernel."""
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, the structure on "
+                         f"{device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if x.dim() != lead + 2 or x.shape[lead] != n_rows:
+        raise ValueError(f"{name} must be [{'S, ' * lead}{n_rows}, D], "
+                         f"got {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if x.device.type == "cpu":
+        return True
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return False
+
+
 def spmm_plain(indptr: torch.Tensor, indices: torch.Tensor,
                counts: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
     """Plain version of the kernels: ``out[..., d, :] = Σ counts[e]·h[...,
@@ -87,29 +110,10 @@ class Spmm:
         so a structure that only aggregates f32 rows never holds them."""
         return self.counts.to(torch.int64)
 
-    def _check(self, h: torch.Tensor, dtype: torch.dtype, lead: int) -> bool:
-        """Validates ``h`` ([n_src, D] after ``lead`` leading axes);
-        returns True when it lies on the CPU (run the plain version)."""
-        if h.device != self.indptr.device:
-            raise ValueError(f"h is on {h.device}, the structure on "
-                             f"{self.indptr.device}")
-        if h.dtype != dtype:
-            raise TypeError(f"h must be {dtype}, got {h.dtype}")
-        if h.dim() != lead + 2 or h.shape[lead] != self.n_src:
-            raise ValueError(f"h must be [{'S, ' * lead}{self.n_src}, D], "
-                             f"got {tuple(h.shape)}")
-        if not h.is_contiguous():
-            raise ValueError("h must be contiguous")
-        if h.device.type == "cpu":
-            return True
-        if h.device.type != "cuda":
-            raise ValueError(f"no kernel for device {h.device}")
-        return False
-
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         """h: f32 [n_src, D], contiguous, on this structure's device ->
         f32 [n_dst, D]."""
-        if self._check(h, torch.float32, 0):
+        if check_rows(h, self.indptr.device, torch.float32, self.n_src):
             return spmm_plain(self.indptr, self.indices, self.counts, h)
         D = h.shape[1]
         out = torch.empty((self.n_dst, D), dtype=h.dtype, device=h.device)
@@ -129,7 +133,7 @@ class Spmm:
         """h: int64 shares [S, n_src, D], contiguous, on this structure's
         device -> [S, n_dst, D] with ``out[s, d] = Σ counts[e]·h[s,
         indices[e]]`` mod 2^64, all S shares in one launch."""
-        if self._check(h, torch.int64, 1):
+        if check_rows(h, self.indptr.device, torch.int64, self.n_src, 1):
             return spmm_plain(self.indptr, self.indices, self.counts_i64, h)
         S, _, D = h.shape
         out = torch.empty((S, self.n_dst, D), dtype=h.dtype, device=h.device)

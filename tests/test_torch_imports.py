@@ -71,6 +71,27 @@ def test_entry_points_raise_without_card():
         mpc_state_from_jax(None, [], None)
 
 
+def test_slice3_entry_points_raise_without_card():
+    from cognn_tpu_torch.ops.sddmm import Sddmm
+    from cognn_tpu_torch.ops.spmm_merged import SpmmMerged
+    from cognn_tpu_torch.tools import bench_spmm
+    from cognn_tpu_torch.utils.timing import device_ms
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    for make in (SpmmMerged, Sddmm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make([0], [1], 2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_spmm.setup(64, 128, 4, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_spmm.main(["--v", "64", "--e", "128"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        device_ms(lambda: None)
+    with pytest.raises(ValueError, match="CUDA"):
+        device_ms(lambda: None, device="cpu")  # no host-clock fallback
+
+
 def test_scan_covers_every_subpackage():
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"core", "mpc", "ops", "engine"} <= scanned
+    assert {"core", "mpc", "ops", "engine", "tools", "utils"} <= scanned

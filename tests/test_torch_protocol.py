@@ -53,7 +53,7 @@ def shares_of_words(u, seed):
     r = np.random.default_rng(seed).integers(0, 1 << 64, u.shape,
                                              dtype=np.uint64)
     s = np.stack([r, u - r])
-    return ring_from_u64(s), jnp.asarray(np.stack(
+    return ring_from_u64(s, device="cpu"), jnp.asarray(np.stack(
         [j_from_u64(s[0]), j_from_u64(s[1])]))
 
 
@@ -81,9 +81,9 @@ def test_linear_ops_exact():
         jrec(jp, jp.mask_mul(jx, jnp.asarray(mask))))
     pub = RNG.integers(0, 1 << 64, (8, 4), dtype=np.uint64)
     np.testing.assert_array_equal(
-        rec(p.add_public(sx, ring_from_u64(pub))),
+        rec(p.add_public(sx, ring_from_u64(pub, device="cpu"))),
         jrec(jp, jp.add_public(jx, jnp.asarray(j_from_u64(pub)))))
-    assert p.zeros((3, 2)).shape == (2, 3, 2)
+    assert p.zeros((3, 2), device="cpu").shape == (2, 3, 2)
 
 
 def test_matmul_and_prepped_exact():

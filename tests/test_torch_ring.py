@@ -57,7 +57,7 @@ def jax_u64(fn, *u64s, **kw):
 
 def test_u64_converters_roundtrip():
     u = words()
-    t = ring_from_u64(u)
+    t = ring_from_u64(u, device="cpu")
     assert t.dtype == torch.int64
     np.testing.assert_array_equal(ring_to_u64(t), u)
 
@@ -65,7 +65,7 @@ def test_u64_converters_roundtrip():
 @pytest.mark.parametrize("f", [16, 1, 31])
 def test_to_f32_bit_exact(f):
     u = words()
-    got = ring.ring_to_f32(ring_from_u64(u), f).numpy()
+    got = ring.ring_to_f32(ring_from_u64(u, device="cpu"), f).numpy()
     want = np.asarray(jring.ring_to_f32(
         jring.RING64, jnp.asarray(jring.ring_from_u64(u)), f))
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
@@ -87,7 +87,8 @@ def test_from_f32_bit_exact():
 @pytest.mark.parametrize("f", [16, 1, 31])
 def test_arith_shift_bit_exact(f):
     u = words()
-    got = ring_to_u64(ring.ring_arith_shift_right(ring_from_u64(u), f))
+    got = ring_to_u64(ring.ring_arith_shift_right(
+        ring_from_u64(u, device="cpu"), f))
     np.testing.assert_array_equal(
         got, jax_u64(jring.ring_arith_shift_right, u, f=f))
 
@@ -95,7 +96,7 @@ def test_arith_shift_bit_exact(f):
 @pytest.mark.parametrize("op", ["add", "sub", "mul", "neg"])
 def test_elementwise_bit_exact(op):
     a, b = words(), words()[::-1].copy()
-    ta, tb = ring_from_u64(a), ring_from_u64(b)
+    ta, tb = ring_from_u64(a, device="cpu"), ring_from_u64(b, device="cpu")
     if op == "neg":
         got, want = ring.ring_neg(ta), jax_u64(jring.ring_neg, a)
     else:
@@ -115,7 +116,7 @@ def test_fixedpoint_matches_jax():
 
 def test_shares_split_merge():
     gen = torch.Generator().manual_seed(3)
-    x = ring_from_u64(words())
+    x = ring_from_u64(words(), device="cpu")
     sh = share_split(gen, x)
     assert sh.shape == (2, *x.shape)
     assert torch.equal(share_merge(sh[0], sh[1]), x)
@@ -145,7 +146,8 @@ def test_ring_matmul_plain_full_range(shape):
     B, N, K, M = shape
     a = RNG.integers(0, 1 << 64, size=(B, N, K), dtype=np.uint64)
     b = RNG.integers(0, 1 << 64, size=(B, K, M), dtype=np.uint64)
-    got = ring_to_u64(ring_matmul_plain(ring_from_u64(a), ring_from_u64(b)))
+    got = ring_to_u64(ring_matmul_plain(ring_from_u64(a, device="cpu"),
+                                        ring_from_u64(b, device="cpu")))
     for i in range(B):
         np.testing.assert_array_equal(got[i], ring_matmul_np(a[i], b[i]))
 
@@ -153,8 +155,10 @@ def test_ring_matmul_plain_full_range(shape):
 def test_ring_matmul_plain_chunks_over_k(monkeypatch):
     """The plain version's K chunking (one chunk per k here) gives the same
     bits as one chunk."""
-    a = ring_from_u64(RNG.integers(0, 1 << 64, (2, 3, 10), dtype=np.uint64))
-    b = ring_from_u64(RNG.integers(0, 1 << 64, (2, 10, 2), dtype=np.uint64))
+    a = ring_from_u64(RNG.integers(0, 1 << 64, (2, 3, 10), dtype=np.uint64),
+                      device="cpu")
+    b = ring_from_u64(RNG.integers(0, 1 << 64, (2, 10, 2), dtype=np.uint64),
+                      device="cpu")
     whole = ring_matmul_plain(a, b)
     monkeypatch.setattr(intmatmul, "_CHUNK_BYTES", 8 * 2 * 3 * 2)
     assert torch.equal(ring_matmul_plain(a, b), whole)
@@ -208,12 +212,13 @@ def test_ring_spmm_plain_matches_u64_oracle(D):
     h = rng.integers(0, 1 << 64, size=(2, n_src, D), dtype=np.uint64)
     k = Spmm(src, dst, n_src, n_dst, torch.device("cpu"))
     assert k.counts_i64.max().item() >= 3
-    got = k.ring(ring_from_u64(h))
+    got = k.ring(ring_from_u64(h, device="cpu"))
     want = spmm_oracle(src, dst, n_dst, h)
     np.testing.assert_array_equal(ring_to_u64(got), want)
     assert not want[:, 2 * n_dst // 3:].any()
     # the plain version alone, one share at a time
-    one = spmm_plain(k.indptr, k.indices, k.counts_i64, ring_from_u64(h[1]))
+    one = spmm_plain(k.indptr, k.indices, k.counts_i64,
+                     ring_from_u64(h[1], device="cpu"))
     np.testing.assert_array_equal(ring_to_u64(one), want[1])
     assert k.ring_launches == 0 and k.launches == 0
 
