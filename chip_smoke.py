@@ -4,9 +4,8 @@
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds every CUDA kernel from ``cognn_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and prints the time; counts the 32-bit
-   multiplies of one 64-bit multiply-add in the ring matmul kernel's SASS
-   (``cuobjdump``), for the integer kernels' operation bound.
+   source, all started together) and prints the time and the compiler's
+   register counts.
 3. Checks once that int64 ``+``, ``-``, ``*``, ``sum`` and ``index_add_`` on
    the card wrap like numpy uint64 (the plain versions, the share
    arithmetic and the ``sparse`` backend rely on it).
@@ -19,7 +18,12 @@
    with part of the edges repeated, checks the SpMM kernels' edge counts
    (above 1 there) and their empty rows. The integer kernels are held to
    ``torch.equal`` on random full-range 64-bit inputs; the ring matmul also
-   on a ragged shape that is no multiple of its tiles.
+   on a ragged shape that is no multiple of its tiles, and on all -1
+   operands (every byte 0xFF, the worst case of its int32 shift sums) at
+   K = 4096, 4097 and 5000, small and, at K = 5000, with enough rows that
+   one block walks all of K (its uint64 flush inside the block). Each ring
+   matmul shape is also timed with a 64 MB buffer written before each call
+   (cold L2).
 5. Drives the port's main paths at the full width of the models the repo
    ships (GCN 1433->16->7 on Cora 2p, GCN 500->16->3 on PubMed 4p), three
    requests each, with random Glorot weights from a seed:
@@ -46,7 +50,8 @@
    output lies within 1e-5 (CSR, K5) or 5e-3 (K4, bf16 operands) of its
    float64 oracle. Then the tool's own K4 and K5 are held and timed as in
    step 6 (K5 on the tool's edges, duplicates and order as they come, and
-   on its ``h`` as both operands).
+   on its ``h`` as both operands). K4 is also held on a graph of two full
+   16x16 tiles whose counts reach 300, so bf16 rounds some of them.
 
 The line before the last is one JSON object with each kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
@@ -54,14 +59,11 @@ exit code is not 0; without a card the script exits 1 before printing a
 result.
 """
 
-import collections
 import json
-import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -70,6 +72,8 @@ from cognn_tpu_torch.utils.timing import HBM_BYTES_PER_S, device_ms
 
 F32_FLOPS_PER_S = 67e12  # H100 SXM f32 peak outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 on the tensor cores
+INT8_TC_OPS_PER_S = 1979e12  # H100 SXM dense int8 on the tensor cores
+LIMB_PAIRS = 36  # byte-limb products of one 64-bit multiply-add in K3
 KERNEL_TOL = dict(rtol=1e-5, atol=1e-5)  # f32 sums in another order
 # K4 and K5: the same exact products (bf16 x bf16 on the tensor cores, or
 # f32 FMAs) summed in f32 in another order; atol as a share of max|plain|
@@ -82,7 +86,11 @@ LOGITS_TOL_OF_MAX = 1e-4
 # the IMAD pipe's issue rate on compute capability 9.0 (CUDA C++
 # Programming Guide, arithmetic instruction throughput table)
 IMAD_PER_CLOCK_PER_SM = 64
-MACS_PER_LOOP = 64  # ring_matmul.cu's unrolled K loop: kTileK x kRowsPerThread
+# 32-bit multiplies of one 64-bit multiply-add on the IMAD pipe (the wide
+# lo*lo and the two cross terms; the adds into the high word uncounted):
+# the ring SpMM's operation bound
+MULTIPLIES_PER_MAC = 3
+FLUSH_BYTES = 64 << 20  # written before each cold-L2 call: above the 50 MB L2
 MPC_LOGITS_TOL = 2e-2  # secret-shared vs plaintext, tests/test_mpc.py:90
 # ... and as a share of the largest plaintext logit (PubMed's are small)
 MPC_LOGITS_TOL_OF_MAX = 1e-2
@@ -90,6 +98,9 @@ FORWARDS = 3  # requests per model
 TIMED_CALLS = 100  # calls per timing window
 PLAIN_CALLS = 20  # the integer plain versions are slow
 RAGGED_MATMUL = (3, 1001, 777, 19)  # B, N, K, M: no multiple of any tile
+# all -1 operands: K around K_CHUNK = 4096 at small N, M (and K = 5000 with
+# rows enough that k_slice keeps all of K in one block, all_ones_check)
+ALL_ONES_MATMULS = ((1, 33, 4096, 5), (1, 33, 4097, 5), (2, 70, 5000, 19))
 
 # (cell, dataset, parties, TPU kernel that JAX aggregation="bcsr" runs
 # there, which of the JAX package's backends its TPU "auto" policy picks).
@@ -125,48 +136,6 @@ def max_sm_clock_hz() -> float:
          "--format=csv,noheader,nounits"],
         check=True, capture_output=True, text=True, timeout=60).stdout
     return float(out.strip()) * 1e6
-
-
-def multiplies_per_mac() -> float:
-    """32-bit multiplies per 64-bit multiply-add in the ring matmul kernel,
-    read from its SASS: the IMAD/IMUL instructions of the K loop, from its
-    first barrier (tiles staged) to its backward branch, that multiply two
-    registers (not IMAD.MOV/.IADD/.SHL, which move, add or shift, and none
-    with an immediate or constant operand, which compute addresses), over
-    the loop's MACS_PER_LOOP multiply-adds. One needs three: the wide lo*lo
-    and the two cross terms; the adds into the high word go uncounted.
-    Prints the loop's opcode histogram."""
-    from cognn_tpu_torch.ops import _build
-
-    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(_build.lib_path("ring_matmul"))],
-        check=True, capture_output=True, text=True, timeout=120).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)
-    body = [f for f in funcs if "ring_matmul_u64" in f.split("\n", 1)[0]]
-    if len(body) != 1:
-        raise AssertionError("ring_matmul_u64 not found once in the SASS")
-    ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                     r"([A-Z][A-Z0-9_.]*)([^;]*);", body[0])
-    start = next(i for i, (_, op, _) in enumerate(ins)
-                 if op.startswith("BAR.SYNC"))
-    end = next(i for i in range(start, len(ins)) if ins[i][1] == "BRA"
-               and int(re.search(r"0x([0-9a-f]+)", ins[i][2]).group(1), 16)
-               < int(ins[i][0], 16))
-    loop = ins[start:end]
-    muls = collections.Counter(
-        op for _, op, args in loop
-        if op.split(".")[0] in ("IMAD", "IMUL")
-        and op.split(".")[1:2] not in (["MOV"], ["IADD"], ["SHL"])
-        and "0x" not in args and "c[" not in args)
-    per_mac = sum(muls.values()) / MACS_PER_LOOP
-    print(f"sass ring_matmul_u64 K loop: {dict(muls)} over {MACS_PER_LOOP} "
-          f"multiply-adds -> {per_mac!r} multiplies each; loop ops "
-          f"{collections.Counter(op for _, op, _ in loop).most_common(10)}",
-          flush=True)
-    if per_mac < 1:
-        raise AssertionError("no integer multiply in the ring matmul K loop")
-    return per_mac
 
 
 def wrap_check() -> None:
@@ -402,25 +371,100 @@ def ring_matmul_operands(shape, rng) -> tuple:
                                        dtype=np.uint64), device="cuda"))
 
 
-def ring_matmul_phase(cell: str, shapes, mac_ms: float) -> dict:
+def cold_ms(fn, calls: int = 20) -> float:
+    """Device time of one ``fn()`` with the L2 cache cold: a FLUSH_BYTES
+    buffer is written before each call and CUDA events bracket the call
+    alone, all queued behind a sleep kernel so that no host gap falls
+    inside a bracket."""
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(calls)]
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)  # ~25 ms: time to queue the calls
+    for start, end in events:
+        flush.fill_(1)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in events) / calls
+
+
+def ring_matmul_phase(cell: str, shapes) -> dict:
     """K3 at the secret-shared forward's PreScatter shapes on random
     full-range operands, measured with ``torch.bmm`` on int64 CUDA tensors
-    as the library call."""
+    as the library call, and timed once more with the L2 cold
+    (:func:`cold_ms`; ``cold_ms`` is their sum). The bound is the larger of
+    A, B and C once at 3.35 TB/s and the kernel's 36 byte-limb products a
+    multiply-add at the int8 tensor-core rate."""
     from cognn_tpu_torch.ops.intmatmul import ring_matmul, ring_matmul_plain
 
     rng = np.random.default_rng(2)
+    operands = [ring_matmul_operands(shape, rng) for shape in shapes]
 
     def cases():
-        for B, N, K, M in shapes:
-            a, b = ring_matmul_operands((B, N, K, M), rng)
+        for (B, N, K, M), (a, b) in zip(shapes, operands):
             yield (f"[{B},{N},{K}]@[{B},{K},{M}]",
                    lambda: ring_matmul(a, b),
                    lambda: ring_matmul_plain(a, b),
                    lambda: torch.bmm(a, b),
                    8 * (B * N * K + B * K * M + B * N * M),
-                   B * N * K * M * mac_ms)
+                   2 * LIMB_PAIRS * B * N * K * M / INT8_TC_OPS_PER_S * 1e3)
 
-    return measure(f"ring matmul {cell}", cases(), None, PLAIN_CALLS)
+    tot = measure(f"ring matmul {cell}", cases(), None, PLAIN_CALLS)
+    tot["cold_ms"] = 0.0
+    for shape, (a, b) in zip(shapes, operands):
+        ms = cold_ms(lambda: ring_matmul(a, b))
+        print(f"ring matmul {cell} {shape} cold L2: kernel_ms={ms!r}",
+              flush=True)
+        tot["cold_ms"] += ms
+    return tot
+
+
+def all_ones_check() -> None:
+    """K3 ``torch.equal`` to its plain version on all -1 operands (every
+    byte 0xFF: each int32 shift sum reaches 8 * 255^2 * K of its K chunk)
+    at each of ALL_ONES_MATMULS, and at K = 5000 with as many 64-row blocks
+    as the card holds at once, so one block walks all of K (above K_CHUNK,
+    its flush inside the block)."""
+    from cognn_tpu_torch.ops import intmatmul
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    whole = (1, intmatmul.BLOCK_ROWS * intmatmul.BLOCKS_PER_SM * sms, 5000, 3)
+    if intmatmul.k_slice(*whole, sms) < whole[2]:
+        raise AssertionError("the whole-K all -1 shape splits K")
+    for B, N, K, M in ALL_ONES_MATMULS + (whole,):
+        a = torch.full((B, N, K), -1, dtype=torch.int64, device="cuda")
+        b = torch.full((B, K, M), -1, dtype=torch.int64, device="cuda")
+        held(f"ring matmul all -1 {(B, N, K, M)}", intmatmul.ring_matmul(a, b),
+             intmatmul.ring_matmul_plain(a, b), None)
+        print(f"ring matmul all -1 (B, N, K, M) = {(B, N, K, M)}: equal to "
+              f"plain (k_slice {intmatmul.k_slice(B, N, K, M, sms)})",
+              flush=True)
+
+
+def full_tile_check() -> None:
+    """K4 held (SUM_ORDER_TOL) to its plain version on two full 16x16 tiles
+    (every source of blocks 1 and 2 into every destination of block 0,
+    counts 1..300, so bf16 rounds the odd ones above 256) at D = 16 and 7."""
+    from cognn_tpu_torch.ops.spmm_merged import SpmmMerged, spmm_merged_plain
+
+    s, d = np.meshgrid(np.arange(16, 48), np.arange(16), indexing="ij")
+    reps = 1 + np.arange(s.size) % 300
+    k = SpmmMerged(np.repeat(s.reshape(-1), reps),
+                   np.repeat(d.reshape(-1), reps), 48, 40, "cuda")
+    if k.n_tiles != 2 or k.nnz != 512 or k.counts.max().item() != 300:
+        raise AssertionError("full-tile graph is not two full tiles")
+    rng = np.random.default_rng(6)
+    for D in (16, 7):
+        h = torch.from_numpy(rng.standard_normal((48, D),
+                                                 dtype=np.float32)).cuda()
+        err = held(f"merged kernel full tiles D={D}", k(h),
+                   spmm_merged_plain(k.indptr, k.indices, k.counts, h),
+                   SUM_ORDER_TOL)
+        print(f"merged kernel full tiles D={D}: 2 tiles of 256 entries, "
+              f"counts to 300, max_abs_err={err!r}", flush=True)
 
 
 def merged_phase(label: str, k, widths, dup=None) -> dict:
@@ -722,11 +766,10 @@ def main() -> None:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
         print(f"nvcc {name}: " + " | ".join(log.split("\n")), flush=True)
-    per_mac = multiplies_per_mac()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
     int_rate = IMAD_PER_CLOCK_PER_SM * sms * clock
-    mac_ms = per_mac / int_rate * 1e3
+    mac_ms = MULTIPLIES_PER_MAC / int_rate * 1e3
     print(f"integer multiply rate: {IMAD_PER_CLOCK_PER_SM} IMAD/clock/SM x "
           f"{sms} SMs x {clock / 1e6:.0f} MHz = {int_rate!r} /s; one 64-bit "
           f"multiply-add {mac_ms!r} ms", flush=True)
@@ -737,6 +780,7 @@ def main() -> None:
     print(f"ring matmul (B, N, K, M) = {RAGGED_MATMUL}: equal to plain on "
           "full-range operands", flush=True)
     del a, b
+    all_ones_check()
 
     kernels = []
     for cell, dataset, parties, replaces, jax_path in CELLS:
@@ -757,7 +801,7 @@ def main() -> None:
         f32 = kernel_phase(cell, engine.spmm, dup, widths)
         ring = ring_spmm_phase(cell, mpc.spmm, dup, widths, mac_ms)
         shapes = [(parties, plan.V, dims[l], dims[l + 1]) for l in range(L)]
-        k3 = ring_matmul_phase(cell, shapes, mac_ms)
+        k3 = ring_matmul_phase(cell, shapes)
 
         f32_launches, z_plain = forward_phase(cell, engine, reference, spmms)
         profile_phase(cell, engine)
@@ -805,6 +849,7 @@ def main() -> None:
         }]
 
     case, bench_counts = bench_phase()
+    full_tile_check()
     v, d = case.v, case.h.shape[1]
     k4 = merged_phase("bench", case.merged, (d,))
     k5 = sddmm_phase("bench", case.sddmm, [(case.h, case.h)])
@@ -817,7 +862,8 @@ def main() -> None:
         "replaces": SPMM_MERGED_REPLACES,
         "jax_path": "tools/bench_spmm.py:210-227 (--merged)",
         "launches": bench_counts["spmm_merged_bf16"],
-        "shape": f"{bench_shape}, {case.merged.n_tiles} 16x16 bf16 tiles",
+        "shape": f"{bench_shape}, {case.merged.n_tiles} 16x16 tiles "
+                 f"stored as {case.merged.nnz} entries",
         **k4,
     }, {
         "name": "sddmm_f32[bench]",

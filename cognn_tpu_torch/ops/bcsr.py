@@ -8,8 +8,9 @@ stores A as destination-sorted CSR: one entry per distinct (src, dst) pair
 with its multiplicity, so duplicate edges accumulate as in ``build_bcsr``.
 
 The block-merged tensor-core SpMM (``csrc/spmm_merged.cu``) takes A as
-small dense tiles instead (:func:`build_tiles_by_dst`), at an edge fitted to
-``mma.sync``, not to the TPU's 128x128 unit.
+16x16 tiles instead (:func:`build_tiles_by_dst`), at an edge fitted to
+``mma.sync``, not to the TPU's 128x128 unit, each stored as its entries
+only: the kernel expands a tile in shared memory.
 """
 
 from __future__ import annotations
@@ -38,25 +39,40 @@ class CsrMatrix:
         return len(self.indices)
 
 
+TILE = 16  # tile edge: mma.m16n8k16's M and K; a position fits 8 bits
+
+
 @dataclasses.dataclass
 class TileMatrix:
-    """The non-empty ``tile`` x ``tile`` tiles of a [n_src, n_dst]
-    edge-count matrix, sorted by destination tile, then source tile: the
-    tiles of destination tile t are ``tptr[t]:tptr[t+1]``. Each tile is
-    stored destination-major, ``vals[k, d % tile, s % tile]`` = count of
-    (s, d): the transpose of the JAX package's ``vals[k, src%128, dst%128]``.
+    """The non-empty 16x16 tiles of a [n_src, n_dst] edge-count matrix,
+    compressed to their entries: one entry per distinct (src, dst) pair,
+    sorted by destination tile, then source tile, then position. The
+    entries of destination tile t are ``dptr[t]:dptr[t+1]``; a tile is a
+    run of entries with one source tile (``esrc // 16``). An entry is two
+    32-bit words: ``entries`` holds the position ``(d % 16) * 16 + s % 16``
+    (destination-major, the transpose of the JAX package's ``vals[k,
+    src%128, dst%128]``) in bits 0-7 and the bf16 bits of the edge count
+    (rounded to nearest even, as JAX's bf16 ``vals``) in bits 16-31;
+    ``esrc`` holds its source row s.
     """
 
-    tptr: np.ndarray  # int32[n_dst_tiles + 1]
-    tsrc: np.ndarray  # int32[n_tiles] source-tile index of each tile
-    vals: np.ndarray  # f32[n_tiles, tile, tile] edge counts (exact)
-    tile: int
+    dptr: np.ndarray  # int32[n_dst_tiles + 1]
+    entries: np.ndarray  # int32[nnz] position | bf16(count) << 16
+    esrc: np.ndarray  # int32[nnz] source row
+    n_tiles: int
     n_src: int
     n_dst: int
 
     @property
-    def n_tiles(self) -> int:
-        return len(self.tsrc)
+    def nbytes(self) -> int:
+        return self.dptr.nbytes + self.entries.nbytes + self.esrc.nbytes
+
+
+def bf16_bits(x: np.ndarray) -> np.ndarray:
+    """uint32 bf16 bit patterns of finite f32 values, rounded to nearest
+    even (``torch``'s f32 -> bf16 cast)."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) >> 16).astype(np.uint32)
 
 
 def edge_arrays(src, dst, n_src: int, n_dst: int):
@@ -74,30 +90,30 @@ def edge_arrays(src, dst, n_src: int, n_dst: int):
 
 
 def build_tiles_by_dst(src: np.ndarray, dst: np.ndarray, n_src: int,
-                       n_dst: int, tile: int) -> TileMatrix:
-    """Edge list (duplicates accumulate into counts) -> dense tiles of the
-    edge-count matrix (counterpart of ``build_bcsr`` with the run grouping
-    of ``PallasSpmmMerged``; the TPU grid's group size, supertiles, padding
-    and coverage groups have no counterpart: a destination tile with no
-    edge simply has no tile, and the kernel writes its rows zero)."""
+                       n_dst: int) -> TileMatrix:
+    """Edge list (duplicates accumulate into counts) -> compressed 16x16
+    tiles of the edge-count matrix (counterpart of ``build_bcsr`` with the
+    run grouping of ``PallasSpmmMerged``; the TPU grid's group size,
+    supertiles, padding and coverage groups have no counterpart: a
+    destination tile with no edge simply has no entry, and the kernel
+    writes its rows zero). No dense tile is ever formed."""
     src, dst = edge_arrays(src, dst, n_src, n_dst)
-    nst = -(-n_src // tile)
-    ndt = -(-n_dst // tile)
-    area = tile * tile
+    nst = max(-(-n_src // TILE), 1)
+    ndt = -(-n_dst // TILE)
+    area = TILE * TILE
     # one key per (tile, position in tile), tiles ordered by (dst, src) tile
-    key = ((dst // tile) * nst + src // tile) * area \
-        + (dst % tile) * tile + src % tile
+    key = ((dst // TILE) * nst + src // TILE) * area \
+        + (dst % TILE) * TILE + src % TILE
     pos, counts = np.unique(key, return_counts=True)
-    tkeys, tile_of = np.unique(pos // area, return_inverse=True)
-    vals = np.zeros((len(tkeys), area), np.float32)
-    vals[tile_of, pos % area] = counts
-    tptr = np.zeros(ndt + 1, np.int64)
-    np.cumsum(np.bincount(tkeys // max(nst, 1), minlength=ndt),
-              out=tptr[1:])
-    return TileMatrix(tptr=tptr.astype(np.int32),
-                      tsrc=(tkeys % max(nst, 1)).astype(np.int32),
-                      vals=vals.reshape(-1, tile, tile), tile=tile,
-                      n_src=n_src, n_dst=n_dst)
+    tiles = pos // area
+    dptr = np.zeros(ndt + 1, np.int64)
+    np.cumsum(np.bincount(tiles // nst, minlength=ndt), out=dptr[1:])
+    entries = (pos % area).astype(np.uint32) | (bf16_bits(counts) << 16)
+    return TileMatrix(dptr=dptr.astype(np.int32),
+                      entries=entries.view(np.int32),
+                      esrc=(tiles % nst * TILE + pos % TILE).astype(np.int32),
+                      n_tiles=len(np.unique(tiles)), n_src=n_src,
+                      n_dst=n_dst)
 
 
 def build_csr_by_dst(src: np.ndarray, dst: np.ndarray, n_src: int,

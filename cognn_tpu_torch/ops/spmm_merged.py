@@ -5,10 +5,12 @@ The kernel replaces the TPU kernel ``cognn_tpu/ops/pallas_spmm.py``
 ``_merged_kernel`` (``PallasSpmmMerged``): the same function as the CSR
 kernel of :mod:`cognn_tpu_torch.ops.spmm`, with both operands rounded to
 bf16 as the TPU kernel rounds them (edge counts stored bf16, H cast in the
-kernel), the products exact in f32 and summed in f32. A is held as dense
-16x16 tiles (:func:`~cognn_tpu_torch.ops.bcsr.build_tiles_by_dst`); one warp
-contracts all source tiles of a destination tile with ``mma.sync`` into one
-accumulator. The source describes the design and its fill on sparse graphs.
+kernel), the products exact in f32 and summed in f32. A is held as 16x16
+tiles compressed to their entries
+(:func:`~cognn_tpu_torch.ops.bcsr.build_tiles_by_dst`); the warps of one
+block expand a destination tile's source tiles and their H rows in shared
+memory and contract them with ``mma.sync``, then sum their accumulators in
+a fixed order. The source describes the design.
 
 No engine routes through it (the JAX engines never call their K4 either);
 the microbenchmark :mod:`cognn_tpu_torch.tools.bench_spmm` does.
@@ -29,13 +31,10 @@ from cognn_tpu_torch.ops.bcsr import build_csr_by_dst, build_tiles_by_dst
 from cognn_tpu_torch.ops.spmm import check_rows, spmm_plain
 from cognn_tpu_torch.utils.device import resolve_device
 
-TILE = 16  # the kernel's tile edge: mma.m16n8k16's M and K
-
-
 @functools.cache
 def _kernel():
     fn = _build.load("spmm_merged").cognn_spmm_tiles_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -52,31 +51,24 @@ def spmm_merged_plain(indptr: torch.Tensor, indices: torch.Tensor,
 
 class SpmmMerged:
     """U = Aᵀ·H in bf16 operands for the [n_src, n_dst] edge-count matrix
-    of an edge list (duplicate edges accumulate), held on ``device`` as bf16
-    16x16 tiles for the kernel and as destination CSR for the plain version.
-    ``launches`` counts launches of the kernel."""
+    of an edge list (duplicate edges accumulate), held on ``device`` as
+    compressed 16x16 tiles for the kernel and as destination CSR for the
+    plain version. ``launches`` counts launches of the kernel."""
 
     def __init__(self, src: np.ndarray, dst: np.ndarray, n_src: int,
                  n_dst: int, device="cuda"):
         dev = resolve_device(device)
         m = build_csr_by_dst(src, dst, n_src, n_dst)
-        t = build_tiles_by_dst(src, dst, n_src, n_dst, TILE)
+        t = build_tiles_by_dst(src, dst, n_src, n_dst)
         self.n_src, self.n_dst, self.nnz = n_src, n_dst, m.nnz
-        self.n_tiles = t.n_tiles
+        self.n_tiles, self.tile_bytes = t.n_tiles, t.nbytes
         self.indptr = torch.as_tensor(m.indptr).to(dev)
         self.indices = torch.as_tensor(m.indices).to(dev)
         self.counts = torch.as_tensor(m.counts).to(dev)
-        self.tptr = torch.as_tensor(t.tptr).to(dev)
-        self.tsrc = torch.as_tensor(t.tsrc).to(dev)
-        self.tiles = torch.as_tensor(t.vals).to(dev, torch.bfloat16)
+        self.dptr = torch.as_tensor(t.dptr).to(dev)
+        self.entries = torch.as_tensor(t.entries).to(dev)
+        self.esrc = torch.as_tensor(t.esrc).to(dev)
         self.launches = 0
-
-    @property
-    def tile_bytes(self) -> int:
-        """Bytes of the kernel's structure: tiles, tile pointers, tile
-        sources."""
-        return (self.tiles.numel() * 2
-                + 4 * (self.tptr.numel() + self.tsrc.numel()))
 
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         """h: f32 [n_src, D], contiguous, on this structure's device ->
@@ -89,9 +81,9 @@ class SpmmMerged:
         if out.numel() == 0:
             return out
         with torch.cuda.device(h.device):
-            err = _kernel()(self.tptr.data_ptr(), self.tsrc.data_ptr(),
-                            self.tiles.data_ptr(), h.data_ptr(),
-                            out.data_ptr(), self.n_src, self.n_dst, D,
+            err = _kernel()(self.dptr.data_ptr(), self.entries.data_ptr(),
+                            self.esrc.data_ptr(), h.data_ptr(),
+                            out.data_ptr(), self.n_dst, D,
                             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"merged spmm kernel launch failed: CUDA "

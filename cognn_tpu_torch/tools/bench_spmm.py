@@ -111,8 +111,8 @@ def check(case: Case) -> dict:
 
 def tile_fill(case: Case, edges=(16, 32, 128)) -> str:
     """Non-empty square tiles of the graph's edge-count matrix and their
-    bytes in bf16, at each tile edge: K4 runs at 16, the TPU layout at 128.
-    """
+    bytes as dense bf16 tiles, at each tile edge (the TPU layout is 128):
+    why K4 stores its 16x16 tiles as entries."""
     out = []
     for t in edges:
         n = -(-case.v // t)

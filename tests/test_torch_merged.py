@@ -1,6 +1,7 @@
-"""The block-merged SpMM (K4): the tile builder, the kernel's plain version
-against the JAX package's ``PallasSpmmMerged`` (interpret mode) and BCSR
-reference, and the microbenchmark's check, all on the CPU.
+"""The block-merged SpMM (K4): the compressed tile builder against a plain
+dense expansion, the kernel's plain version against the JAX package's
+``PallasSpmmMerged`` (interpret mode) and BCSR reference, and the
+microbenchmark's check, all on the CPU.
 
 Tolerances: against ``PallasSpmmMerged``, 1e-5 x max|ref|: both round H and
 the edge counts to bf16 and form exact products, summed in f32 in another
@@ -15,8 +16,8 @@ import torch
 
 from cognn_tpu.ops.bcsr import BLOCK, bcsr_spmm_reference, build_bcsr
 from cognn_tpu.ops.pallas_spmm import PallasSpmmMerged
-from cognn_tpu_torch.ops.bcsr import build_tiles_by_dst
-from cognn_tpu_torch.ops.spmm_merged import TILE, SpmmMerged
+from cognn_tpu_torch.ops.bcsr import TILE, bf16_bits, build_tiles_by_dst
+from cognn_tpu_torch.ops.spmm_merged import SpmmMerged
 from cognn_tpu_torch.tools import bench_spmm
 
 torch.set_num_threads(1)
@@ -59,33 +60,119 @@ def dense_counts(src, dst, n_src, n_dst):
     return a
 
 
+def expand(t):
+    """The kernel's expansion of the compressed tiles, in numpy: a tile is
+    a run of entries with one destination tile and one source tile; each
+    entry writes its bf16 count at its position of the tile's zeroed 16x16
+    slot. -> (destination tile, source tile, f32 [n_tiles, 16, 16])."""
+    dtile = np.repeat(np.arange(len(t.dptr) - 1), np.diff(t.dptr))
+    stile = t.esrc.astype(np.int64) // TILE
+    w = t.entries.view(np.uint32)
+    assert ((w & (TILE - 1)) == t.esrc % TILE).all()  # source columns agree
+    key = (dtile * (stile.max(initial=0) + 1) + stile) * 256 + (w & 0xFF)
+    assert (np.diff(key) > 0).all()  # sorted, no position twice in a tile
+    start = np.diff(key // 256, prepend=-1) != 0
+    tile_of = np.cumsum(start) - 1
+    dense = np.zeros((start.sum(), TILE * TILE), np.float32)
+    dense[tile_of, w & 0xFF] = ((w >> 16) << 16).view(np.float32)
+    return dtile[start], stile[start], dense.reshape(-1, TILE, TILE)
+
+
+def dense_tiles_reference(src, dst, n_src, n_dst):
+    """Plain reference: the non-empty 16x16 blocks of the [n_dst, n_src]
+    count matrix in (destination, source) block order, rounded to bf16 by
+    torch. -> (destination tile, source tile, f32 [n, 16, 16])."""
+    ndt, nst = -(-n_dst // TILE), -(-n_src // TILE)
+    a = np.zeros((ndt * TILE, nst * TILE), np.float32)
+    a[:n_dst, :n_src] = dense_counts(src, dst, n_src, n_dst)
+    blocks = a.reshape(ndt, TILE, nst, TILE).transpose(0, 2, 1, 3)
+    dt, st = np.nonzero(blocks.any(axis=(2, 3)))
+    tiles = torch.from_numpy(blocks[dt, st]).to(torch.bfloat16).float()
+    return dt, st, tiles.numpy()
+
+
+def full_tile_graph(copies=301):
+    """Two full 16x16 tiles (every source of blocks 1 and 2 into every
+    destination of block 0), counts 1..300, and the pair (20, 3) (count
+    68) repeated ``copies`` more times."""
+    s, d = np.meshgrid(np.arange(16, 48), np.arange(16), indexing="ij")
+    src, dst = s.reshape(-1), d.reshape(-1)
+    rep = np.arange(len(src)) % 300  # count of edge i: 1 + i % 300
+    src, dst = np.repeat(src, rep + 1), np.repeat(dst, rep + 1)
+    return (np.r_[src, np.full(copies, 20)], np.r_[dst, np.full(copies, 3)],
+            48, 40)
+
+
+def graphs():
+    V = 300
+    b_src, b_dst = banded(V, 1000, 40, 1)
+    rng = np.random.default_rng(5)
+    yield "banded", b_src, b_dst, V, V
+    yield ("duplicates", np.r_[b_src, b_src[:99], b_src[:9]],
+           np.r_[b_dst, b_dst[:99], b_dst[:9]], V, V)
+    yield ("full tile", *full_tile_graph())
+    yield ("block0 only", rng.integers(0, 1024, 200),
+           rng.integers(0, 64, 200), 1024, 1024)
+    yield "empty", np.zeros(0, np.int64), np.zeros(0, np.int64), 256, 200
+
+
+def check_tiles(src, dst, n_src, n_dst):
+    """The compressed tiles against :func:`dense_tiles_reference`: order,
+    pointers, expansion and bytes."""
+    t = build_tiles_by_dst(src, dst, n_src, n_dst)
+    want_dt, want_st, want = dense_tiles_reference(src, dst, n_src, n_dst)
+    assert len(t.dptr) == -(-n_dst // TILE) + 1 and t.dptr[0] == 0
+    assert t.dptr[-1] == len(t.entries) == len(t.esrc)
+    dt, st, got = expand(t)
+    np.testing.assert_array_equal(dt, want_dt)
+    np.testing.assert_array_equal(st, want_st)
+    np.testing.assert_array_equal(got, want)
+    assert t.n_tiles == len(want)
+    assert t.nbytes == 4 * (len(t.dptr) + 2 * len(t.entries))
+
+
 def test_tiles_structure():
-    V, E = 300, 1000
-    src, dst = banded(V, E, 40, 1)
+    V = 300
+    src, dst = banded(V, 1000, 40, 1)
     src, dst = np.r_[src, src[:99]], np.r_[dst, dst[:99]]  # duplicates
-    t = build_tiles_by_dst(src, dst, V, V, TILE)
-    assert t.vals.sum() == len(src)  # total mass == number of edges
-    nst = -(-V // TILE)
-    assert len(t.tptr) == nst + 1 and t.tptr[0] == 0
-    assert t.tptr[-1] == t.n_tiles
-    dtile = np.repeat(np.arange(nst), np.diff(t.tptr))
-    key = dtile.astype(np.int64) * nst + t.tsrc
-    assert (np.diff(key) > 0).all()  # by destination tile, then source
-    assert (t.vals.reshape(t.n_tiles, -1).max(1) > 0).all()  # none empty
-    # destination-major tiles reassemble the [n_dst, n_src] count matrix
-    a = np.zeros((nst * TILE, nst * TILE), np.float32)
-    for k in range(t.n_tiles):
-        i, j = dtile[k] * TILE, t.tsrc[k] * TILE
-        a[i:i + TILE, j:j + TILE] += t.vals[k]
-    np.testing.assert_array_equal(a[:V, :V], dense_counts(src, dst, V, V))
+    check_tiles(src, dst, V, V)
+    t = build_tiles_by_dst(src, dst, V, V)
+    assert expand(t)[2].sum() == len(src)  # total mass == number of edges
+
+
+@pytest.mark.parametrize("graph", list(graphs()), ids=lambda g: g[0])
+def test_tiles_expand_to_dense_reference(graph):
+    check_tiles(*graph[1:])
 
 
 def test_tiles_duplicates_accumulate():
-    t = build_tiles_by_dst([0, 0, 17], [1, 1, 1], 20, 20, TILE)
-    np.testing.assert_array_equal(t.tptr, [0, 2, 2])
-    np.testing.assert_array_equal(t.tsrc, [0, 1])
-    assert t.vals[0, 1, 0] == 2.0 and t.vals[1, 1, 1] == 1.0
-    assert t.vals.sum() == 3.0
+    t = build_tiles_by_dst([0, 0, 17], [1, 1, 1], 20, 20)
+    np.testing.assert_array_equal(t.dptr, [0, 2, 2])
+    np.testing.assert_array_equal(t.esrc, [0, 17])
+    _, st, d = expand(t)
+    np.testing.assert_array_equal(st, [0, 1])
+    assert d[0, 1, 0] == 2.0 and d[1, 1, 1] == 1.0 and d.sum() == 3.0
+
+
+def test_full_tile_counts_round_to_bf16():
+    src, dst, n_src, n_dst = full_tile_graph()
+    t = build_tiles_by_dst(src, dst, n_src, n_dst)
+    assert t.n_tiles == 2 and len(t.entries) == 512  # two full tiles
+    d = expand(t)[2]
+    counts = dense_counts(src, dst, n_src, n_dst)
+    assert counts[3, 20] == 369 and (counts > 256).sum() > 40
+    assert d[0, 3, 4] == 368.0  # bf16(369), a tie, rounds to even
+    assert (d != counts[:16, 16:48].reshape(16, 2, 16).transpose(1, 0, 2)
+            ).sum() > 20  # other counts above 256 round too
+    np.testing.assert_array_equal(
+        bf16_bits(np.array([256, 257, 301, 255], np.float32)),
+        [0x4380, 0x4380, 0x4396, 0x437F])
+    h = rows(n_src, 8, 9)
+    got = port(src, dst, n_src, n_dst, h)
+    h16 = torch.from_numpy(h).to(torch.bfloat16).double().numpy()
+    c16 = torch.from_numpy(counts).to(torch.bfloat16).double().numpy()
+    np.testing.assert_allclose(got, c16 @ h16, rtol=0,
+                               atol=SUM_ORDER * np.abs(c16 @ h16).max())
 
 
 @pytest.mark.parametrize("G,C", [(4, 2), (3, 4)])
@@ -139,7 +226,7 @@ def test_destinations_in_block0_only():
 def test_empty_graph():
     none = np.zeros(0, np.int64)
     k = SpmmMerged(none, none, 256, 200, CPU)
-    assert k.n_tiles == 0 and k.tptr.numel() == -(-200 // TILE) + 1
+    assert k.n_tiles == 0 and k.dptr.numel() == -(-200 // TILE) + 1
     got = k(torch.from_numpy(rows(256, 8, 7)))
     assert got.shape == (200, 8) and not got.any()
     assert k.launches == 0

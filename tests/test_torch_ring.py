@@ -179,6 +179,71 @@ def test_ring_matmul_matches_jax_small():
     assert intmatmul.launches == before  # CPU tensors run the plain version
 
 
+def limb_emulation(a, b, k_slice):
+    """The kernel's arithmetic on uint64 [N, K] @ [K, M], in numpy: K in
+    slices of ``k_slice``; in a slice, byte limbs A_i, B_j, the 36 pairs
+    with i + j <= 7 summed per shift s = i + j in an int32 range (asserted)
+    and flushed into uint64 (<< 8s, wrapping) every ``K_CHUNK``; the
+    slices' partial C added with wrap-around, as the kernel's atomics do."""
+    K = a.shape[1]
+    al = [((a >> np.uint64(8 * i)) & np.uint64(0xFF)).astype(np.int64)
+          for i in range(8)]
+    bl = [((b >> np.uint64(8 * j)) & np.uint64(0xFF)).astype(np.int64)
+          for j in range(8)]
+    out = np.zeros((a.shape[0], b.shape[1]), np.uint64)
+    for s0 in range(0, K, k_slice):
+        s1 = min(K, s0 + k_slice)
+        part = np.zeros_like(out)
+        for k0 in range(s0, s1, intmatmul.K_CHUNK):
+            k1 = min(s1, k0 + intmatmul.K_CHUNK)
+            acc = np.zeros((8, *out.shape), np.int64)
+            for i in range(8):
+                for j in range(8 - i):
+                    acc[i + j] += al[i][:, k0:k1] @ bl[j][k0:k1]
+            assert acc.min() >= 0 and acc.max() <= 2**31 - 1
+            for sh in range(8):
+                part += acc[sh].astype(np.uint64) << np.uint64(8 * sh)
+        out += part
+    return out
+
+
+@pytest.mark.parametrize("K,full,k_slice", [
+    (37, False, 128), (700, False, 256), (1433, False, 512),
+    (intmatmul.K_CHUNK, True, 4096), (intmatmul.K_CHUNK + 1, True, 8192),
+    (intmatmul.K_CHUNK + 1, True, 128)])
+def test_ring_matmul_limb_emulation(K, full, k_slice):
+    """The limb emulation equals the plain version and JAX ring_matmul_np
+    on full-range operands, and on all-0xFF operands (every word -1: the
+    int32 shift sums' worst case) at K = K_CHUNK and K_CHUNK + 1."""
+    N, M = 3, 5
+    if full:
+        a = np.full((N, K), (1 << 64) - 1, np.uint64)
+        b = np.full((K, M), (1 << 64) - 1, np.uint64)
+    else:
+        a = RNG.integers(0, 1 << 64, (N, K), dtype=np.uint64)
+        b = RNG.integers(0, 1 << 64, (K, M), dtype=np.uint64)
+    got = limb_emulation(a, b, k_slice)
+    want = ring_to_u64(ring_matmul_plain(ring_from_u64(a[None], device="cpu"),
+                                         ring_from_u64(b[None], device="cpu")))
+    np.testing.assert_array_equal(got, want[0])
+    if not full or K == intmatmul.K_CHUNK:  # ring_matmul_np is slow at 4097
+        np.testing.assert_array_equal(got, ring_matmul_np(a, b))
+
+
+def test_k_slice_policy():
+    """K split into whole stages only while all blocks fit the card at
+    once; every slice length is a whole number of stages."""
+    ks = intmatmul.k_slice
+    full = intmatmul.BLOCK_ROWS * intmatmul.BLOCKS_PER_SM * 132
+    assert ks(2, 1360, 1433, 16, 132) == 256  # Cora layer 0: 6 slices
+    assert ks(4, 4936, 500, 16, 132) >= 500  # PubMed layer 0: one slice
+    assert ks(2, 1360, 16, 7, 132) >= 16
+    assert ks(1, full, 5000, 3, 132) >= 5000 > intmatmul.K_CHUNK
+    for shape in [(1, 3, 4097, 5), (3, 1001, 777, 19), (1, 1, 1, 1)]:
+        k = ks(*shape, 132)
+        assert k % intmatmul.STAGE_K == 0 and k > 0
+
+
 @pytest.mark.parametrize("a,b", [
     (torch.zeros(1, 2, 3), torch.zeros(1, 3, 2)),  # float
     (torch.zeros(2, 3, dtype=torch.int64), torch.zeros(3, 2,
