@@ -23,7 +23,13 @@
    K = 4096, 4097 and 5000, small and, at K = 5000, with enough rows that
    one block walks all of K (its uint64 flush inside the block). Each ring
    matmul shape is also timed with a 64 MB buffer written before each call
-   (cold L2).
+   (cold L2). The two CSR SpMM kernels are also held on a graph of edge
+   cases (``edge_case_check``): a hub row of 1500 entries, rows one below,
+   at and one above every batch size, empty first, middle and last rows,
+   an odd source count (the ring's share 1 misaligned at odd D), at
+   D = 1, 3, 7, 16, 33, 64, and on ``h`` one element into its storage
+   (the scalar path). A one-element ``zero_`` is timed as the kernels are:
+   the launch floor. Each cell's in-degree profile is printed.
 5. Drives the port's main paths at the full width of the models the repo
    ships (GCN 1433->16->7 on Cora 2p, GCN 500->16->3 on PubMed 4p), three
    requests each, with random Glorot weights from a seed:
@@ -101,6 +107,13 @@ RAGGED_MATMUL = (3, 1001, 777, 19)  # B, N, K, M: no multiple of any tile
 # all -1 operands: K around K_CHUNK = 4096 at small N, M (and K = 5000 with
 # rows enough that k_slice keeps all of K in one block, all_ones_check)
 ALL_ONES_MATMULS = ((1, 33, 4096, 5), (1, 33, 4097, 5), (2, 70, 5000, 19))
+# the SpMM edge cases: a hub row above 1024 entries, and rows one below, at
+# and one above 4, 8, 16 and 32 entries (a row's batch in csrc/spmm.cu is
+# kBatch x slots: 8 as shipped, 4 to 16 in the variants sweep_spmm builds);
+# widths from 1 to past one 32-lane chunk of 16-byte loads
+EDGE_DEGREES = (3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 1500)
+EDGE_WIDTHS = (1, 3, 7, 16, 33, 64)
+EDGE_N_SRC = 3001
 
 # (cell, dataset, parties, TPU kernel that JAX aggregation="bcsr" runs
 # there, which of the JAX package's backends its TPU "auto" policy picks).
@@ -167,23 +180,6 @@ def wrap_check() -> None:
                                  "like numpy uint64")
     print(f"wrap check: int64 {', '.join(checks)} on the card equal numpy "
           "uint64", flush=True)
-
-
-def make_plan(dataset: str, parties: int):
-    from cognn_tpu_torch.engine import build_device_plan
-    from cognn_tpu_torch.graph import build_party_graph
-    from cognn_tpu_torch.harness.datasets import synthetic_planetoid
-
-    ds = synthetic_planetoid(dataset)
-    vids = np.arange(len(ds.features))
-    tid = {v: v % parties for v in range(len(vids))}
-    graphs = []
-    for p in range(parties):
-        g = build_party_graph(ds.src, ds.dst, None, tid, p, parties,
-                              all_vids=vids)
-        g.set_vertex_data(vids, ds.features, ds.labels)
-        graphs.append(g)
-    return build_device_plan(graphs), ds.param
 
 
 def csr_edges(spmm):
@@ -284,11 +280,129 @@ def measure(label: str, cases, tol, plain_calls: int = TIMED_CALLS) -> dict:
     return tot
 
 
+def edge_graph():
+    """Edges for :func:`edge_case_check`: EDGE_N_SRC sources (odd, so the
+    ring's share 1 starts misaligned at odd D) into one destination row for
+    each of EDGE_DEGREES, the first and the last row and one in the middle
+    empty; the hub's first 100 edges and every row's first edge repeated
+    (counts of 2 and 3)."""
+    rng = np.random.default_rng(7)
+    degrees = (0,) + EDGE_DEGREES[:len(EDGE_DEGREES) // 2] + (0,) + \
+        EDGE_DEGREES[len(EDGE_DEGREES) // 2:] + (0,)
+    src, dst = [], []
+    for row, deg in enumerate(degrees):
+        s = rng.choice(EDGE_N_SRC, deg, replace=False)
+        s = np.concatenate([s, s[:1], s[:100 if deg >= 1024 else 0]])
+        src.append(s)
+        dst.append(np.full(len(s), row))
+    return np.concatenate(src), np.concatenate(dst), len(degrees)
+
+
+def offset_view(values: torch.Tensor, offset: int) -> torch.Tensor:
+    """``values`` copied into a fresh storage ``offset`` elements in: a
+    contiguous view whose data pointer is no longer 16-byte aligned."""
+    buf = torch.empty(values.numel() + offset, dtype=values.dtype,
+                      device=values.device)
+    buf[offset:] = values.flatten()
+    return buf[offset:].view(values.shape)
+
+
+def edge_case_check() -> None:
+    """Both SpMM kernels on :func:`edge_graph`'s rows (a hub of in-degree
+    EDGE_DEGREES[-1]; rows one below, at and one above every batch size of
+    4, 8, 16, 32; empty first, middle and last rows) at each width of
+    EDGE_WIDTHS, and once more with ``h`` one element into its storage,
+    which must take the scalar path. The ring kernel is held to its plain
+    version with ``torch.equal`` on random full-range int64 shares. The
+    f32 kernel's gate is its plain version (KERNEL_TOL) on integer-valued
+    rows, whose sums are exact in f32 in any order, so a wrong entry shows
+    at any degree (on normal rows two orders of the hub's 1500 terms differ
+    by more than 1e-5 where they cancel). Beside it runs a rounding sanity
+    check, not a gate for a wrong entry at the hub (its slack there is
+    ~1.8e-4 of sum |h|): on standard normal rows the f32 sum must lie
+    within gamma_n * sum |count * h| of the float64 sum, gamma_n =
+    n u / (1 - n u), u = 2^-24, n = 2 roundings (product and add) for each
+    entry of the row."""
+    from cognn_tpu_torch.core.ring import ring_from_u64
+    from cognn_tpu_torch.ops.spmm import Spmm, launch_shape, spmm_plain
+
+    src, dst, n_dst = edge_graph()
+    k = Spmm(src, dst, EDGE_N_SRC, n_dst, "cuda")
+    empty = (k.indptr.diff() == 0).nonzero().flatten().tolist()
+    if empty != [0, 1 + len(EDGE_DEGREES) // 2, n_dst - 1] or \
+            k.counts.max().item() < 3:
+        raise AssertionError(f"edge graph: empty rows {empty}, max count "
+                             f"{k.counts.max().item()}")
+    nu = 2 * k.indptr.diff().double()[:, None] * 2.0 ** -24
+    gamma = nu / (1 - nu)
+    counts64 = k.counts.double()
+    rng = np.random.default_rng(8)
+    for D, offset in [(D, 0) for D in EDGE_WIDTHS] + [(16, 1), (7, 1)]:
+        h = offset_view(torch.from_numpy(rng.integers(
+            -8, 9, (EDGE_N_SRC, D)).astype(np.float32)).cuda(), offset)
+        hn = offset_view(torch.from_numpy(rng.standard_normal(
+            (EDGE_N_SRC, D), dtype=np.float32)).cuda(), offset)
+        hr = offset_view(ring_from_u64(rng.integers(
+            0, 1 << 64, (2, EDGE_N_SRC, D), dtype=np.uint64), device="cuda"),
+            offset)
+        # the path the wrappers take (their outputs come from the allocator,
+        # 16-byte aligned)
+        path = launch_shape(D, 4, (h.data_ptr(),))
+        ring_path = launch_shape(D, 8, (hr.data_ptr(),),
+                                 (EDGE_N_SRC * D, n_dst * D))
+        if offset and (path[0], ring_path[0]) != (1, 1):
+            raise AssertionError(f"offset view D={D} takes a vector path")
+        launches = (k.launches, k.ring_launches)
+        err = held(f"edge cases D={D} offset={offset}", k(h),
+                   spmm_plain(k.indptr, k.indices, k.counts, h), KERNEL_TOL)
+        held(f"ring edge cases D={D} offset={offset}", k.ring(hr),
+             spmm_plain(k.indptr, k.indices, k.counts_i64, hr), None)
+        exact = spmm_plain(k.indptr, k.indices, counts64, hn.double())
+        bound = gamma * spmm_plain(k.indptr, k.indices, counts64,
+                                   hn.double().abs())
+        dev = (k(hn).double() - exact).abs()
+        if not (dev <= bound).all():
+            raise AssertionError(f"edge cases D={D} offset={offset}: f32 sum "
+                                 f"off the float64 one beyond the rounding "
+                                 f"bound (sanity check), by "
+                                 f"{(dev - bound).max().item()}")
+        if (k.launches, k.ring_launches) != (launches[0] + 2,
+                                             launches[1] + 1):
+            raise AssertionError("edge cases: a kernel did not launch")
+        print(f"edge cases D={D} h offset={offset} element(s): nnz={k.nnz} "
+              f"degrees={list(EDGE_DEGREES)} f32 (vec, lanes)={path} "
+              f"max_abs_err={err!r} (integer rows, the check), normal rows "
+              f"max|f32 - f64|={dev.max().item()!r}, at most "
+              f"{(dev / bound.clamp_min(1e-30)).max().item()!r} of its "
+              f"rounding bound (sanity check); ring (vec, lanes)={ring_path} "
+              f"equal to plain (max_abs_err 0)", flush=True)
+
+
+def launch_floor() -> None:
+    """Device time of a one-element ``zero_``, timed as the kernels are
+    (``device_ms``): the part of a µs kernel's time no design removes."""
+    x = torch.zeros(1, device="cuda")
+    ms = device_ms(x.zero_, TIMED_CALLS)
+    print(f"launch_floor_ms={ms!r} (one-element zero_, device_ms over "
+          f"{TIMED_CALLS} calls; {card_line()})", flush=True)
+
+
+def degree_line(cell: str, spmm) -> None:
+    """The in-degree profile of ``spmm``'s rows, which sets the CSR
+    kernels' batches."""
+    deg = spmm.indptr.diff().cpu().numpy()
+    print(f"rows {cell}: n={spmm.n_dst} entries={spmm.nnz} mean in-degree="
+          f"{deg.mean()!r} max={deg.max()} p99={np.percentile(deg, 99)!r} "
+          f"empty={(deg == 0).sum()} max count="
+          f"{spmm.counts.max().item()!r} above 32={(deg > 32).sum()}",
+          flush=True)
+
+
 def kernel_phase(cell: str, spmm, dup, widths) -> dict:
     """The f32 SpMM at each width, measured with ``torch.sparse.mm`` as the
     library call; also held against its plain version on
     :func:`with_repeats`' edges (``dup``)."""
-    from cognn_tpu_torch.ops.spmm import spmm_plain
+    from cognn_tpu_torch.ops.spmm import launch_shape, spmm_plain
 
     rng = np.random.default_rng(0)
     a_csr = torch.sparse_csr_tensor(
@@ -308,7 +422,9 @@ def kernel_phase(cell: str, spmm, dup, widths) -> dict:
                   f"max count={dup.counts.max().item()!r} "
                   f"empty rows={(dup.indptr.diff() == 0).sum().item()} "
                   f"max_abs_err={errs[-1]!r}", flush=True)
-            yield (f"D={D} n={spmm.n_dst} nnz={spmm.nnz}",
+            path = launch_shape(D, 4, (h.data_ptr(),))
+            yield (f"D={D} n={spmm.n_dst} nnz={spmm.nnz} "
+                   f"(vec, lanes)={path}",
                    lambda: spmm(h),
                    lambda: spmm_plain(spmm.indptr, spmm.indices, spmm.counts,
                                       h),
@@ -329,7 +445,7 @@ def ring_spmm_phase(cell: str, spmm, dup, widths, mac_ms: float) -> dict:
     on ``dup``'s edges. ``mac_ms`` is the operation time of one 64-bit
     multiply-add."""
     from cognn_tpu_torch.core.ring import ring_from_u64
-    from cognn_tpu_torch.ops.spmm import spmm_plain
+    from cognn_tpu_torch.ops.spmm import launch_shape, spmm_plain
 
     rng = np.random.default_rng(1)
     S, n_src, n_dst = 2, spmm.n_src, spmm.n_dst
@@ -347,7 +463,10 @@ def ring_spmm_phase(cell: str, spmm, dup, widths, mac_ms: float) -> dict:
             print(f"ring kernel {cell} D={D}: equal to plain on repeated "
                   f"edges nnz={dup.nnz} (max count "
                   f"{dup.counts_i64.max().item()})", flush=True)
-            yield (f"2 shares D={D} n={n_dst} nnz={spmm.nnz}",
+            path = launch_shape(D, 8, (h.data_ptr(),),
+                                (n_src * D, n_dst * D))
+            yield (f"2 shares D={D} n={n_dst} nnz={spmm.nnz} "
+                   f"(vec, lanes)={path}",
                    lambda: spmm.ring(h),
                    lambda: spmm_plain(spmm.indptr, spmm.indices,
                                       spmm.counts_i64, h),
@@ -750,6 +869,7 @@ def main() -> None:
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs "
                  "on a GPU")
     from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.harness.datasets import party_plan
     from cognn_tpu_torch.mpc import MpcGasEngine
     from cognn_tpu_torch.ops import _build
     from cognn_tpu_torch.ops.intmatmul import ring_matmul, ring_matmul_plain
@@ -781,11 +901,13 @@ def main() -> None:
           "full-range operands", flush=True)
     del a, b
     all_ones_check()
+    edge_case_check()
+    launch_floor()
 
     kernels = []
     for cell, dataset, parties, replaces, jax_path in CELLS:
         t0 = time.perf_counter()
-        plan, param = make_plan(dataset, parties)
+        plan, param = party_plan(dataset, parties)
         engine = GasEngine(plan, param, "opt_inference", device="cuda")
         reference = GasEngine(plan, param, "opt_inference",
                               aggregation="sparse", device="cuda")
@@ -797,6 +919,7 @@ def main() -> None:
         dims, L = param.layer_dims, param.num_layers
         widths = dims[1:]
         dup = with_repeats(engine.spmm)
+        degree_line(cell, engine.spmm)
         spmms = (engine.spmm, mpc.spmm, dup)
         f32 = kernel_phase(cell, engine.spmm, dup, widths)
         ring = ring_spmm_phase(cell, mpc.spmm, dup, widths, mac_ms)

@@ -85,3 +85,22 @@ def synthetic_planetoid(name: str, seed: int = 0,
     if name == "pubmed":
         feats /= np.maximum(feats.sum(axis=1, keepdims=True), 1.0)
     return Dataset(name, src, dst, feats, labels, gnn_param_for(name))
+
+
+def party_plan(name: str, parties: int):
+    """The device plan of :func:`synthetic_planetoid` ``name`` split over
+    ``parties`` (vertex v to party v mod parties), and the dataset's
+    :class:`GNNParam`: the cells that ``chip_smoke.py`` drives."""
+    from cognn_tpu_torch.engine import build_device_plan
+    from cognn_tpu_torch.graph import build_party_graph
+
+    ds = synthetic_planetoid(name)
+    vids = np.arange(len(ds.features))
+    tid = {v: v % parties for v in range(len(vids))}
+    graphs = []
+    for p in range(parties):
+        g = build_party_graph(ds.src, ds.dst, None, tid, p, parties,
+                              all_vids=vids)
+        g.set_vertex_data(vids, ds.features, ds.labels)
+        graphs.append(g)
+    return build_device_plan(graphs), ds.param

@@ -46,24 +46,29 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its library is built already.
-    Returns the compiler's output (register and spill counts from
-    ``-Xptxas=-v``; empty when the library was reused); raises if the
-    compile fails."""
-    out = lib_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(exist_ok=True)
+def compile_cu(src: Path, out: Path) -> str:
+    """Compile the CUDA source ``src`` into the shared library ``out``
+    (written whole or not at all). Returns the compiler's output (register
+    and spill counts from ``-Xptxas=-v``); raises if the compile fails."""
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                        str(CSRC / f"{name}.cu")],
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                        text=True)
     if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}:\n{r.stdout}")
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}")
     os.replace(tmp, out)
     return r.stdout
+
+
+def build(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library is built already.
+    Returns the compiler's output (empty when the library was reused);
+    raises if the compile fails."""
+    out = lib_path(name)
+    if out.exists():
+        return ""
+    return compile_cu(CSRC / f"{name}.cu", out)
 
 
 @functools.cache

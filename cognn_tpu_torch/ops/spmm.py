@@ -6,14 +6,17 @@ The kernel replaces the TPU kernels ``cognn_tpu/ops/pallas_spmm.py``
 ``_kernel`` (:class:`PallasSpmm`) and ``_tiled_kernel``
 (:class:`PallasSpmmTiled`), which compute the same function over dense
 128x128 blocks of A. On the H100 it is bound by bytes: the CSR structure, H
-once and the output once; its design (one warp per destination row, lanes
-over features, no atomics) is described in the source.
+once and the output once; its design (a group of lanes a destination row,
+lanes over features, entries in batches, no atomics) is described in the
+source. :func:`launch_shape` picks its instantiation: 16-byte loads where
+every row start is aligned, else scalar ones, and the lanes a row.
 
 The ring instantiation (:meth:`Spmm.ring`) replaces the same two kernels in
 their share instantiation (``cognn_tpu/mpc/engine.py`` ``_bcsr_agg_shares``,
 byte planes of uint32 limbs): it sums int64 shares with int64 edge counts,
-wrapping mod 2^64, both shares in one launch. Exact for any multiplicity and
-in-degree, so none of the JAX package's byte-plane guards carry over.
+wrapping mod 2^64, both shares of a row from one read of its entries. Exact
+for any multiplicity and in-degree, so none of the JAX package's byte-plane
+guards carry over.
 
 :class:`Spmm` is built once from an edge list. Called on a CUDA tensor it
 launches a kernel (and raises if the launch fails); on a CPU tensor it runs
@@ -32,22 +35,36 @@ from cognn_tpu_torch.ops import _build
 from cognn_tpu_torch.ops.bcsr import build_csr_by_dst
 
 
-@functools.cache
-def _kernel():
-    fn = _build.load("spmm").cognn_spmm_csr_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
-def _ring_kernel():
-    fn = _build.load("spmm").cognn_spmm_csr_i64
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+def bind(lib: ctypes.CDLL) -> tuple:
+    """The f32 and the ring entry points of a built ``csrc/spmm.cu``
+    library, with their C signatures."""
+    f32, ring = lib.cognn_spmm_csr_f32, lib.cognn_spmm_csr_i64
+    f32.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    ring.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    f32.restype = ring.restype = ctypes.c_int
+    return f32, ring
+
+
+@functools.cache
+def _kernels() -> tuple:
+    return bind(_build.load("spmm"))
+
+
+def launch_shape(d: int, elem_bytes: int, ptrs, share_elems=()) -> tuple:
+    """The kernel instantiation for rows of ``d`` elements of
+    ``elem_bytes``: ``(vec, lanes)``. ``vec`` is the elements a lane loads
+    at once: 16 bytes' worth when every row start is 16-byte aligned (each
+    of ``ptrs``, the row pitch, and each share stride of ``share_elems``
+    elements), else 1. ``lanes`` is the power of two, at most 32, that
+    covers the row in loads of ``vec``. (The kernel gives a row 2 of these
+    groups side by side where they fit a warp, 1 at 32 lanes.)"""
+    vec = 16 // elem_bytes
+    steps = (*ptrs, d * elem_bytes, *(n * elem_bytes for n in share_elems))
+    if any(x % 16 for x in steps):
+        vec = 1
+    return vec, min(32, 1 << (-(-d // vec) - 1).bit_length())
 
 
 def check_rows(x: torch.Tensor, device: torch.device, dtype: torch.dtype,
@@ -119,32 +136,40 @@ class Spmm:
         out = torch.empty((self.n_dst, D), dtype=h.dtype, device=h.device)
         if self.n_dst == 0 or D == 0:
             return out
+        shape = launch_shape(D, 4, (h.data_ptr(), out.data_ptr()))
         with torch.cuda.device(h.device):
-            err = _kernel()(self.indptr.data_ptr(), self.indices.data_ptr(),
-                            self.counts.data_ptr(), h.data_ptr(),
-                            out.data_ptr(), self.n_dst, D,
-                            torch.cuda.current_stream().cuda_stream)
+            err = _kernels()[0](self.indptr.data_ptr(),
+                                self.indices.data_ptr(),
+                                self.counts.data_ptr(), h.data_ptr(),
+                                out.data_ptr(), self.n_dst, D, *shape,
+                                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"spmm kernel launch failed: CUDA error {err}")
         self.launches += 1
         return out
 
     def ring(self, h: torch.Tensor) -> torch.Tensor:
-        """h: int64 shares [S, n_src, D], contiguous, on this structure's
-        device -> [S, n_dst, D] with ``out[s, d] = Σ counts[e]·h[s,
-        indices[e]]`` mod 2^64, all S shares in one launch."""
-        if check_rows(h, self.indptr.device, torch.int64, self.n_src, 1):
+        """h: the two int64 shares [2, n_src, D], contiguous, on this
+        structure's device -> [2, n_dst, D] with ``out[s, d] = Σ
+        counts[e]·h[s, indices[e]]`` mod 2^64, both shares in one launch."""
+        cpu = check_rows(h, self.indptr.device, torch.int64, self.n_src, 1)
+        if h.shape[0] != 2:
+            raise ValueError(f"h must hold 2 shares, got {h.shape[0]}")
+        if cpu:
             return spmm_plain(self.indptr, self.indices, self.counts_i64, h)
         S, _, D = h.shape
         out = torch.empty((S, self.n_dst, D), dtype=h.dtype, device=h.device)
         if out.numel() == 0:
             return out
+        shape = launch_shape(D, 8, (h.data_ptr(), out.data_ptr()),
+                             (self.n_src * D, self.n_dst * D))
         with torch.cuda.device(h.device):
-            err = _ring_kernel()(self.indptr.data_ptr(),
-                                 self.indices.data_ptr(),
-                                 self.counts_i64.data_ptr(), h.data_ptr(),
-                                 out.data_ptr(), S, self.n_src, self.n_dst, D,
-                                 torch.cuda.current_stream().cuda_stream)
+            err = _kernels()[1](self.indptr.data_ptr(),
+                                self.indices.data_ptr(),
+                                self.counts_i64.data_ptr(), h.data_ptr(),
+                                out.data_ptr(), S, self.n_src, self.n_dst, D,
+                                *shape,
+                                torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"ring spmm kernel launch failed: CUDA error "
                                f"{err}")

@@ -293,6 +293,7 @@ def test_ring_spmm_plain_matches_u64_oracle(D):
     torch.zeros(5, 4, dtype=torch.int64),  # no share axis
     torch.zeros(2, 6, 4, dtype=torch.int64),  # rows != n_src
     torch.zeros(2, 4, 5, dtype=torch.int64).transpose(1, 2),  # strides
+    torch.zeros(3, 5, 4, dtype=torch.int64),  # the kernel takes 2 shares
 ])
 def test_ring_spmm_rejects(bad):
     k = Spmm([0, 1], [1, 2], 5, 5, torch.device("cpu"))
