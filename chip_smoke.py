@@ -28,8 +28,14 @@
    at and one above every batch size, empty first, middle and last rows,
    an odd source count (the ring's share 1 misaligned at odd D), at
    D = 1, 3, 7, 16, 33, 64, and on ``h`` one element into its storage
-   (the scalar path). A one-element ``zero_`` is timed as the kernels are:
-   the launch floor. Each cell's in-degree profile is printed.
+   (the scalar path). The SDDMM (K5) is held on its own edge cases
+   (``sddmm_edge_check``): every D from 1 to 64, edge counts of 0, 1 and
+   one below, at and one above every power of two to 1024 (its batch,
+   warp and block sizes), repeated edges and edges on the last rows,
+   n_src != n_dst, and ``a`` one element into its storage (the scalar
+   path); ``torch.equal`` on integer-valued rows. A one-element ``zero_``
+   is timed as the kernels are: the launch floor. Each cell's in-degree
+   profile is printed.
 5. Drives the port's main paths at the full width of the models the repo
    ships (GCN 1433->16->7 on Cora 2p, GCN 500->16->3 on PubMed 4p), three
    requests each, with random Glorot weights from a seed:
@@ -42,12 +48,17 @@
    ``sparse`` secret-shared backend's bit for bit and lie within 2e-2 of
    the plaintext port's and within 1e-2 of its largest logit; metrics must
    be finite. One more request of each
-   is profiled (device time by kernel against wall time).
+   is profiled (device time by kernel against wall time). Between the two,
+   ``n0_fp_check``: the secret-shared engine's encoded normalizers (from
+   the host's float64 rsqrt) equal on the card and on the CPU, on the
+   cell's degrees and on every degree 0..199,999.
 6. Holds the block-merged tensor-core SpMM (K4) and the SDDMM (K5) against
    their plain versions on each cell's flat edges at both widths (K4 also
    on the repeated edges) and times them, with ``torch.sparse.mm`` on the
    bf16-rounded CSR and ``torch.sparse.sampled_addmm`` (cuSPARSE SDDMM) as
-   the library calls.
+   the library calls. K5 at the cells' shapes is on the kernels line
+   (``sddmm_f32[cell]``, shape only), with its launches counted in step
+   5's forwards like every other kernel's: no engine launches it, so 0.
 7. Drives the slice-3 path: the aggregation-kernel microbenchmark
    (``cognn_tpu_torch.tools.bench_spmm``) at its defaults (V = 32768,
    E = 131072, D = 16, band 2048). The CSR kernel's, K4's and K5's counts
@@ -114,6 +125,17 @@ ALL_ONES_MATMULS = ((1, 33, 4096, 5), (1, 33, 4097, 5), (2, 70, 5000, 19))
 EDGE_DEGREES = (3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 1500)
 EDGE_WIDTHS = (1, 3, 7, 16, 33, 64)
 EDGE_N_SRC = 3001
+# K5's edge cases: every D from 1 to 64 (1 to 16 lanes an edge, float4 and
+# scalar loads, one chunk and more); edge counts of 0, 1, and one below, at
+# and one above every power of two to 1024 (a lane group's batch of 4
+# edges, a warp's 32 / lanes x 4 and a block's 4 warps at every lane count,
+# and the sweep's batches of 1, 2 and 8), and SDDMM_EDGES; n_src != n_dst
+SDDMM_WIDTHS = range(1, 65)
+SDDMM_EDGES = 5003
+SDDMM_EDGE_COUNTS = (0, 1) + tuple(sorted(
+    {(1 << i) + k for i in range(1, 11) for k in (-1, 0, 1)} - {1})) + (
+        SDDMM_EDGES,)
+SDDMM_N_SRC, SDDMM_N_DST = 1001, 700
 
 # (cell, dataset, parties, TPU kernel that JAX aggregation="bcsr" runs
 # there, which of the JAX package's backends its TPU "auto" policy picks).
@@ -182,23 +204,13 @@ def wrap_check() -> None:
           "uint64", flush=True)
 
 
-def csr_edges(spmm):
-    """The edges of ``spmm``'s CSR, destination-major with sources
-    ascending, each as often as its count."""
-    indptr = spmm.indptr.cpu().numpy()
-    src = spmm.indices.cpu().numpy().astype(np.int64)
-    dst = np.repeat(np.arange(spmm.n_dst), np.diff(indptr))
-    counts = spmm.counts.cpu().numpy().astype(np.int64)
-    return np.repeat(src, counts), np.repeat(dst, counts)
-
-
 def with_repeats(spmm):
     """An Spmm at ``spmm``'s shape over its edges with the first quarter
     appended twice more: those entries get counts of 3 (the synthetic
     graphs have no repeated edge), and the padding rows stay empty."""
     from cognn_tpu_torch.ops.spmm import Spmm
 
-    src, dst = csr_edges(spmm)
+    src, dst = spmm.edge_list()
     k = len(src) // 4
     src = np.concatenate([src, src[:k], src[:k]])
     dst = np.concatenate([dst, dst[:k], dst[:k]])
@@ -376,6 +388,68 @@ def edge_case_check() -> None:
               f"{(dev / bound.clamp_min(1e-30)).max().item()!r} of its "
               f"rounding bound (sanity check); ring (vec, lanes)={ring_path} "
               f"equal to plain (max_abs_err 0)", flush=True)
+
+
+def sddmm_edges():
+    """SDDMM_EDGES edges from SDDMM_N_SRC sources to SDDMM_N_DST
+    destinations: the first three touch the last source row, the last
+    destination row or both; every fourth edge from the fourth on repeats
+    an earlier one (so even 4 edges hold a duplicate)."""
+    rng = np.random.default_rng(9)
+    src = rng.integers(0, SDDMM_N_SRC, SDDMM_EDGES)
+    dst = rng.integers(0, SDDMM_N_DST, SDDMM_EDGES)
+    src[:3] = SDDMM_N_SRC - 1, SDDMM_N_SRC - 1, 0
+    dst[:3] = SDDMM_N_DST - 1, 0, SDDMM_N_DST - 1
+    copies = np.arange(len(src[3::4]))
+    src[3::4], dst[3::4] = src[copies].copy(), dst[copies].copy()
+    return src, dst
+
+
+def sddmm_edge_check() -> None:
+    """K5 on the first n of :func:`sddmm_edges` for every n of
+    SDDMM_EDGE_COUNTS at every D of SDDMM_WIDTHS, and again with ``a`` one
+    element into its storage (the scalar path). The gate is integer-valued
+    rows, whose f32 dot products are exact in any order: ``torch.equal`` to
+    the plain version. On standard normal rows, every D at the full count,
+    the kernel is held to SUM_ORDER_TOL."""
+    from cognn_tpu_torch.ops.sddmm import Sddmm, launch_shape, sddmm_plain
+
+    src, dst = sddmm_edges()
+    ks = [Sddmm(src[:n], dst[:n], SDDMM_N_SRC, SDDMM_N_DST, "cuda")
+          for n in SDDMM_EDGE_COUNTS]
+    rng = np.random.default_rng(10)
+    shapes, worst = set(), 0.0
+    for D in SDDMM_WIDTHS:
+        a, b = (torch.from_numpy(rng.integers(-8, 9, (n, D)).astype(
+            np.float32)).cuda() for n in (SDDMM_N_SRC, SDDMM_N_DST))
+        a_off = offset_view(a, 1)
+        if launch_shape(D, 4, (a_off.data_ptr(), b.data_ptr()))[0] != 1:
+            raise AssertionError(f"sddmm offset view D={D} takes a vector "
+                                 "path")
+        shapes.add(launch_shape(D, 4, (a.data_ptr(), b.data_ptr())))
+        for k in ks:
+            launches = k.launches
+            for x in (a, a_off):
+                held(f"sddmm edge cases D={D} edges={k.n_edges} "
+                     f"offset={x is a_off:d}", k(x, b),
+                     sddmm_plain(k.src, k.dst, x, b), None)
+            if k.launches != launches + 2 * (k.n_edges > 0):
+                raise AssertionError(f"sddmm edge cases D={D} edges="
+                                     f"{k.n_edges}: the kernel did not "
+                                     "launch")
+        an, bn = (torch.from_numpy(rng.standard_normal(
+            (n, D), dtype=np.float32)).cuda() for n in (SDDMM_N_SRC,
+                                                        SDDMM_N_DST))
+        worst = max(worst, held(f"sddmm edge cases D={D} normal rows",
+                                ks[-1](an, bn),
+                                sddmm_plain(ks[-1].src, ks[-1].dst, an, bn),
+                                SUM_ORDER_TOL))
+    print(f"sddmm edge cases: D={SDDMM_WIDTHS.start}..{SDDMM_WIDTHS.stop - 1} "
+          f"x edge counts {list(SDDMM_EDGE_COUNTS)} (n_src={SDDMM_N_SRC}, "
+          f"n_dst={SDDMM_N_DST}, last rows, repeats), aligned and a one "
+          f"element into its storage: equal to plain on integer rows; "
+          f"(vec, lanes) taken {sorted(shapes)}; normal rows max_abs_err="
+          f"{worst!r} ({SUM_ORDER_TOL})", flush=True)
 
 
 def launch_floor() -> None:
@@ -641,7 +715,7 @@ def sddmm_phase(label: str, k, operands) -> dict:
     the plain version's through each edge's place in that pattern. The
     bytes count both index arrays, the scores, and each distinct row
     tensor once (``a is b`` on the microbenchmark)."""
-    from cognn_tpu_torch.ops.sddmm import sddmm_plain
+    from cognn_tpu_torch.ops.sddmm import launch_shape, sddmm_plain
 
     src = k.src.cpu().numpy().astype(np.int64)
     dst = k.dst.cpu().numpy().astype(np.int64)
@@ -661,8 +735,9 @@ def sddmm_phase(label: str, k, operands) -> dict:
             D = a.shape[1]
             at = a.t().contiguous()
             rows = a.numel() + (0 if b is a else b.numel())
+            path = launch_shape(D, 4, (a.data_ptr(), b.data_ptr()))
             yield (f"D={D} n={k.n_dst} edges={k.n_edges} "
-                   f"distinct={len(keys)}",
+                   f"distinct={len(keys)} (vec, lanes)={path}",
                    lambda: k(a, b),
                    lambda: sddmm_plain(k.src, k.dst, a, b),
                    (lambda: torch.sparse.sampled_addmm(pattern, b, at,
@@ -712,19 +787,20 @@ def bench_phase():
 
 
 def reset_counts(spmms) -> None:
-    from cognn_tpu_torch.ops import intmatmul
+    from cognn_tpu_torch.ops import intmatmul, sddmm
 
-    intmatmul.launches = 0
+    intmatmul.launches = sddmm.launches = 0
     for k in spmms:
         k.launches = k.ring_launches = 0
 
 
 def read_counts(spmms) -> dict:
-    from cognn_tpu_torch.ops import intmatmul
+    from cognn_tpu_torch.ops import intmatmul, sddmm
 
     return {"spmm_csr_f32": sum(k.launches for k in spmms),
             "spmm_csr_i64": sum(k.ring_launches for k in spmms),
-            "ring_matmul_i64": intmatmul.launches}
+            "ring_matmul_i64": intmatmul.launches,
+            "sddmm_f32": sddmm.launches}
 
 
 def timed_forwards(engine):
@@ -750,8 +826,8 @@ def check_metrics(cell: str, engine, metrics) -> dict:
 
 def forward_phase(cell: str, engine, reference, spmms):
     """The plaintext main path: FORWARDS inference requests, with every
-    kernel count set to 0 just before and read just after. Returns the f32
-    kernel's launches and the logits."""
+    kernel count set to 0 just before and read just after. Returns the
+    counts and the logits."""
     reset_counts(spmms)
     (z, prob, metrics), times = timed_forwards(engine)
     counts = read_counts(spmms)
@@ -760,7 +836,7 @@ def forward_phase(cell: str, engine, reference, spmms):
     if tuple(z.shape) != (P, V, C):
         raise AssertionError(f"{cell}: logits shape {tuple(z.shape)}")
     want = {"spmm_csr_f32": FORWARDS * engine.L, "spmm_csr_i64": 0,
-            "ring_matmul_i64": 0}
+            "ring_matmul_i64": 0, "sddmm_f32": 0}
     if counts != want:
         raise AssertionError(f"{cell}: kernel launches {counts} in "
                              f"{FORWARDS} forwards of {engine.L} layers, "
@@ -774,26 +850,31 @@ def forward_phase(cell: str, engine, reference, spmms):
           f"(atol {atol!r}) "
           f"loss={m['loss'].tolist()} test_acc={m['test_acc'].tolist()} "
           f"full_acc={m['full_acc'].tolist()}", flush=True)
-    return counts["spmm_csr_f32"], z
+    return counts, z
 
 
 def n0_fp_check(cell: str, mpc) -> None:
-    """How many encoded normalizers the card's rsqrt moves by a ring unit
-    against the CPU's: on this cell's in-degrees and on every degree
-    0..199,999. More than one unit fails."""
-    from cognn_tpu_torch.engine.gas import norm0
+    """The encoded normalizers on the card against the CPU's: the engine's
+    own ``n0_fp`` (the host's float64 rsqrt, encoded on the card) and the
+    encode of every degree 0..199,999, each against the same encode on the
+    CPU. Any difference fails. Also counts the degrees where the card's
+    ``torch.rsqrt`` (``norm0``, the plaintext engine's scale) differs from
+    the host's value before the encode."""
+    from cognn_tpu_torch.engine.gas import norm0, norm0_host
 
     enc = mpc.proto.encode_public
-    for name, deg in (("cell", mpc.arr.in_deg),
-                      ("0..199999", torch.arange(200_000, dtype=torch.float32,
-                                                 device="cuda"))):
-        diff = enc(norm0(deg)).cpu() - enc(norm0(deg.cpu()))
-        worst = diff.abs().max().item()
+    for name, deg in (("cell", mpc.plan.in_deg),
+                      ("0..199999", np.arange(200_000, dtype=np.float32))):
+        host = torch.from_numpy(norm0_host(deg))
+        got = (mpc.n0_fp if name == "cell" else enc(host.cuda())).cpu()
+        diff = got - enc(host)
+        rsqrt = (norm0(torch.from_numpy(deg).cuda()).cpu() != host).sum()
         print(f"n0_fp {cell} {name}: {(diff != 0).sum().item()} of "
-              f"{diff.numel()} differ card vs CPU, max {worst} unit(s)",
-              flush=True)
-        if worst > 1:
-            raise AssertionError(f"{cell}: n0_fp card vs CPU off by {worst}")
+              f"{diff.numel()} differ card vs CPU (torch.rsqrt on the card "
+              f"differs from the host's f32 at {rsqrt.item()})", flush=True)
+        if (diff != 0).any():
+            raise AssertionError(f"{cell}: n0_fp card vs CPU off by "
+                                 f"{diff.abs().max().item()}")
 
 
 def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
@@ -811,7 +892,7 @@ def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
         raise AssertionError(f"{cell}: mpc logits {z.dtype} "
                              f"{tuple(z.shape)}")
     want = {"spmm_csr_f32": 0, "spmm_csr_i64": FORWARDS * mpc.L,
-            "ring_matmul_i64": FORWARDS * mpc.L}
+            "ring_matmul_i64": FORWARDS * mpc.L, "sddmm_f32": 0}
     if counts != want:
         raise AssertionError(f"{cell}: mpc kernel launches {counts} in "
                              f"{FORWARDS} forwards of {mpc.L} layers, "
@@ -902,6 +983,7 @@ def main() -> None:
     del a, b
     all_ones_check()
     edge_case_check()
+    sddmm_edge_check()
     launch_floor()
 
     kernels = []
@@ -926,17 +1008,17 @@ def main() -> None:
         shapes = [(parties, plan.V, dims[l], dims[l + 1]) for l in range(L)]
         k3 = ring_matmul_phase(cell, shapes)
 
-        f32_launches, z_plain = forward_phase(cell, engine, reference, spmms)
+        f32_counts, z_plain = forward_phase(cell, engine, reference, spmms)
         profile_phase(cell, engine)
         n0_fp_check(cell, mpc)
         counts = mpc_forward_phase(cell, mpc, mpc_sparse, z_plain, spmms)
         profile_phase(f"{cell} mpc", mpc)
         n_src, n_dst = engine.spmm.n_src, engine.spmm.n_dst
-        src, dst = csr_edges(engine.spmm)
+        src, dst = engine.spmm.edge_list()
         merged_phase(cell, SpmmMerged(src, dst, n_src, n_dst, "cuda"), widths,
-                     SpmmMerged(*csr_edges(dup), n_src, n_dst, "cuda"))
+                     SpmmMerged(*dup.edge_list(), n_src, n_dst, "cuda"))
         k5 = Sddmm(src, dst, n_src, n_dst, "cuda")
-        sddmm_phase(cell, k5, random_operands(k5, widths, 5))
+        sddmm = sddmm_phase(cell, k5, random_operands(k5, widths, 5))
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{
@@ -945,7 +1027,7 @@ def main() -> None:
             "source": "cognn_tpu_torch/csrc/spmm.cu",
             "replaces": replaces,
             "jax_path": jax_path,
-            "launches": f32_launches,
+            "launches": f32_counts["spmm_csr_f32"],
             "shape": f"one forward: D in {list(widths)}, {csr}",
             **f32,
         }, {
@@ -969,6 +1051,17 @@ def main() -> None:
             "shape": "one secret-shared forward: " + ", ".join(
                 f"[{b},{n},{k}]@[{b},{k},{m}]" for b, n, k, m in shapes),
             **k3,
+        }, {
+            "name": f"sddmm_f32[{cell}]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/sddmm.cu",
+            "replaces": SDDMM_REPLACES,
+            "jax_path": "shape only: no engine launches K5",
+            "launches": f32_counts["sddmm_f32"] + counts["sddmm_f32"],
+            "shape": f"scores of the cell's {k5.n_edges} flat edges "
+                     f"(destination-major), D in {list(widths)}, random "
+                     f"rows; sampled_addmm on the same edges",
+            **sddmm,
         }]
 
     case, bench_counts = bench_phase()

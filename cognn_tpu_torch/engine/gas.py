@@ -45,6 +45,19 @@ def norm0(deg: torch.Tensor) -> torch.Tensor:
     return torch.where(deg == 0, torch.zeros_like(deg), torch.rsqrt(deg + 1.0))
 
 
+def norm0_host(deg: np.ndarray) -> np.ndarray:
+    """:func:`norm0` on the host for the public degrees of a plan: (deg+1)^-1/2
+    in float64, rounded once to float32, degree 0 giving 0. The same on every
+    device, so the secret-shared engine encodes it; ``torch.rsqrt`` on the card
+    and on the CPU, and XLA's ``rsqrt``, each differ from it in the last bit
+    for some degrees."""
+    deg = np.asarray(deg, np.float64)
+    out = np.zeros_like(deg)
+    nz = deg != 0
+    out[nz] = 1.0 / np.sqrt(deg[nz] + 1.0)
+    return out.astype(np.float32)
+
+
 class _Comm:
     """Stacked-mode collectives (party axis = leading batch axis)."""
 

@@ -48,7 +48,7 @@ from cognn_tpu_torch.engine.gas import (
     _PlanArrays,
     _take_rows,
     gcn_metrics,
-    norm0,
+    norm0_host,
 )
 from cognn_tpu_torch.engine.plan import DevicePlan, plan_tensors, set_split
 from cognn_tpu_torch.mpc.protocol import Protocol
@@ -122,8 +122,10 @@ class MpcGasEngine:
                 device=self.device).expand(self.P, dims[i], dims[i + 1]))
             for i in range(self.L)
         ]
-        # public fixed-point normalizers (norm0 quirk preserved)
-        n0_fp = self.proto.encode_public(norm0(self.arr.in_deg))
+        # public fixed-point normalizers (norm0 quirk preserved), from the
+        # host's float64 rsqrt: bit for bit the same on the card and the CPU
+        n0_fp = self.proto.encode_public(torch.from_numpy(
+            norm0_host(plan.in_deg)).to(self.device))
         self.install_state(x0_sh, weights_sh, n0_fp)
 
     def install_state(self, x0_sh: torch.Tensor,

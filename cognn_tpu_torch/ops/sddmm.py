@@ -7,10 +7,15 @@ of scores densely, masks it by the block's edges, and leaves
 ``PallasSddmm.edge_scores`` to pick the edges out. Here the result is what
 those two give together: one f32 score per input edge, in input order (a
 duplicated edge is scored once per copy), with no block formed. It is bound
-by bytes (gathered rows, indices, scores); the source describes the design.
+by bytes (gathered rows, indices, scores); the source describes the design
+(a group of lanes an edge, edges in batches whose index and row loads are
+all issued before any sum). :func:`launch_shape` picks its instantiation:
+16-byte loads where every row start is aligned, else scalar ones, and the
+lanes an edge (``ops/spmm.py`` :func:`launch_shape`, as for the SpMM).
 
 :class:`Sddmm` called on CUDA tensors launches the kernel (and raises if the
-launch fails); on CPU tensors it runs :func:`sddmm_plain`.
+launch fails) and counts the launch in its ``launches`` and in this
+module's :data:`launches`; on CPU tensors it runs :func:`sddmm_plain`.
 """
 
 from __future__ import annotations
@@ -23,17 +28,27 @@ import torch
 
 from cognn_tpu_torch.ops import _build
 from cognn_tpu_torch.ops.bcsr import edge_arrays
-from cognn_tpu_torch.ops.spmm import check_rows
+from cognn_tpu_torch.ops.spmm import check_rows, launch_shape
 from cognn_tpu_torch.utils.device import resolve_device
+
+# kernel launches made by every Sddmm (a plain count for checks and smoke
+# runs)
+launches = 0
+
+
+def bind(lib: ctypes.CDLL):
+    """The entry point of a built ``csrc/sddmm.cu`` library, with its C
+    signature."""
+    fn = lib.cognn_sddmm_f32
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64] + [
+        ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 @functools.cache
 def _kernel():
-    fn = _build.load("sddmm").cognn_sddmm_f32
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return bind(_build.load("sddmm"))
 
 
 def sddmm_plain(src: torch.Tensor, dst: torch.Tensor, a: torch.Tensor,
@@ -59,6 +74,7 @@ class Sddmm:
     def __call__(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """a: f32 [n_src, D], b: f32 [n_dst, D], contiguous, on this edge
         list's device -> f32 [n_edges]."""
+        global launches
         on_cpu = check_rows(a, self.src.device, torch.float32, self.n_src,
                             name="a")
         check_rows(b, self.src.device, torch.float32, self.n_dst, name="b")
@@ -69,13 +85,16 @@ class Sddmm:
         out = torch.empty(self.n_edges, dtype=a.dtype, device=a.device)
         if self.n_edges == 0:
             return out
+        D = a.shape[1]
+        shape = launch_shape(D, 4, (a.data_ptr(), b.data_ptr()))
         with torch.cuda.device(a.device):
             err = _kernel()(self.src.data_ptr(), self.dst.data_ptr(),
                             a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                            self.n_edges, a.shape[1],
+                            self.n_edges, D, *shape,
                             torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"sddmm kernel launch failed: CUDA error "
                                f"{err}")
         self.launches += 1
+        launches += 1
         return out

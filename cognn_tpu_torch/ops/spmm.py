@@ -127,6 +127,15 @@ class Spmm:
         so a structure that only aggregates f32 rows never holds them."""
         return self.counts.to(torch.int64)
 
+    def edge_list(self) -> tuple:
+        """The edges as numpy int64 ``(src, dst)``, destination-major with
+        sources ascending, each as often as its count."""
+        indptr = self.indptr.cpu().numpy()
+        counts = self.counts.cpu().numpy().astype(np.int64)
+        src = self.indices.cpu().numpy().astype(np.int64)
+        dst = np.repeat(np.arange(self.n_dst), np.diff(indptr))
+        return np.repeat(src, counts), np.repeat(dst, counts)
+
     def __call__(self, h: torch.Tensor) -> torch.Tensor:
         """h: f32 [n_src, D], contiguous, on this structure's device ->
         f32 [n_dst, D]."""

@@ -98,44 +98,59 @@ VARIANTS = {
 }
 
 
-def variant_source(edits) -> str:
-    """``csrc/spmm.cu`` with ``edits`` made; raises where an edit's text
+def variant_source(edits, name: str = "spmm") -> str:
+    """``csrc/<name>.cu`` with ``edits`` made; raises where an edit's text
     is not in the source exactly once."""
-    src = (_build.CSRC / "spmm.cu").read_text()
+    src = (_build.CSRC / f"{name}.cu").read_text()
     for old, new in edits:
         if src.count(old) != 1:
             raise ValueError(f"edit target found {src.count(old)} times in "
-                             f"spmm.cu: {old[:60]!r}")
+                             f"{name}.cu: {old[:60]!r}")
         src = src.replace(old, new)
     return src
 
 
-def build_variants() -> dict:
-    """Each variant's (f32, ring) entry points, compiled in parallel."""
+def build_variants(variants=VARIANTS, name: str = "spmm",
+                   bind=spmm_mod.bind) -> dict:
+    """Each variant's entry points (``bind`` of its library), compiled in
+    parallel."""
     out = _build.BUILD_DIR / "variants"
 
     def one(item):
-        i, (name, (edits, _)) = item
-        cu = out / f"spmm_{i}.cu"
+        i, (variant, (edits, _)) = item
+        cu = out / f"{name}_{i}.cu"
         cu.parent.mkdir(parents=True, exist_ok=True)
-        cu.write_text(variant_source(edits))
+        cu.write_text(variant_source(edits, name))
         _build.compile_cu(cu, cu.with_suffix(".so"))
-        return name, spmm_mod.bind(ctypes.CDLL(str(cu.with_suffix(".so"))))
+        return variant, bind(ctypes.CDLL(str(cu.with_suffix(".so"))))
 
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:  # one nvcc each
-        return dict(pool.map(one, enumerate(VARIANTS.items())))
+    with ThreadPoolExecutor(len(variants)) as pool:  # one nvcc each
+        return dict(pool.map(one, enumerate(variants.items())))
 
 
 @contextlib.contextmanager
-def entry_points(fns):
-    """The wrappers launch ``fns`` (f32, ring) instead of the shipped
-    build's entry points while this is open."""
-    shipped = spmm_mod._kernels
-    spmm_mod._kernels = lambda: fns
+def entry_points(fns, module=spmm_mod, attr: str = "_kernels"):
+    """The wrappers of ``module`` launch ``fns`` instead of the shipped
+    build's entry points (what ``module.<attr>()`` returns) while this is
+    open."""
+    shipped = getattr(module, attr)
+    setattr(module, attr, lambda: fns)
     try:
         yield
     finally:
-        spmm_mod._kernels = shipped
+        setattr(module, attr, shipped)
+
+
+def time_in_turns(call, fns, use, reps: int, dev) -> dict:
+    """ms of one ``call()`` under each variant's entry points (``use(fns[
+    variant])`` opens them): the variants in turns, forward then backward,
+    each time the mean of its two windows."""
+    ms = dict.fromkeys(fns, 0.0)
+    for order in (list(fns), list(fns)[::-1]):
+        for variant in order:
+            with use(fns[variant]):
+                ms[variant] += device_ms(call, reps, dev) / 2
+    return ms
 
 
 def shapes(dev):
@@ -194,11 +209,7 @@ def main(argv=None) -> None:
                                      "differs from plain")
             if not ring:
                 torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-        ms = dict.fromkeys(VARIANTS, 0.0)
-        for order in (list(VARIANTS), list(VARIANTS)[::-1]):
-            for variant in order:
-                with entry_points(fns[variant]):
-                    ms[variant] += device_ms(call, args.reps, dev) / 2
+        ms = time_in_turns(call, fns, entry_points, args.reps, dev)
         launch = launch_shape(D, h.element_size(), (h.data_ptr(),),
                               (k.n_src * D, k.n_dst * D) if ring else ())
         for variant, t in ms.items():

@@ -8,26 +8,32 @@ engine's bit for bit, through both aggregation backends; accuracies and
 ``num_border`` exactly, the loss within 1e-6 (softmax and log of two
 libraries).
 
-The state has to be carried because the port's own ``n0_fp`` may differ:
-``torch.rsqrt`` and XLA's ``rsqrt`` disagree in the last float32 bit for some
-degrees, and after the fixed-point encode a few normalizers differ by one
-ring unit. So with its own state the port is held to one unit on ``n0_fp``
-and to 2e-2 on the logits, the bound of tests/test_mpc.py:90, which is also
-the bound against the port's plaintext engine.
+The port encodes its normalizers from a float64 rsqrt on the host, rounded
+once to float32 (``norm0_host``), so its own ``n0_fp`` equals the JAX
+engine's on the test graphs, and with its own state the revealed logits are
+bit-equal too. Over every degree 0..199,999 the two encodes differ at one
+degree only (88738), by one ring unit: XLA's float32 ``rsqrt`` rounds that
+normalizer the other way. The logits are also held to 2e-2 of the port's
+plaintext engine, the bound of tests/test_mpc.py:90.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from cognn_tpu.core.ring import ring_to_u64 as j_to_u64
 from cognn_tpu.engine import build_device_plan as jax_build_device_plan
+from cognn_tpu.engine.gas import norm0 as jax_norm0
 from cognn_tpu.mpc import MpcGasEngine as JaxMpcGasEngine
+from cognn_tpu.mpc.protocol import Protocol as JaxProtocol
 from cognn_tpu_torch.convert import mpc_state_from_jax
 from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
 from cognn_tpu_torch.core.ring import RingSpec, ring_to_u64
 from cognn_tpu_torch.engine import GasEngine, build_device_plan
+from cognn_tpu_torch.engine.gas import norm0_host
 from cognn_tpu_torch.mpc import MpcGasEngine
+from cognn_tpu_torch.mpc.protocol import Protocol as MpcProtocol
 from cognn_tpu_torch.ops import intmatmul
 
 from test_oracle import build_parties, make_dataset, make_param
@@ -93,18 +99,30 @@ def test_forward_bit_equal_to_jax(jax_side, aggregation):
 def test_own_state_close_to_jax(jax_side):
     eng = torch_engine(jax_side["P"])
     x0_sh, weights_sh, n0_fp = jax_side["state"]
-    # x0 and the weights encode identically (float32 truncation) ...
+    # x0 and the weights encode identically (float32 truncation), and so do
+    # the normalizers (host float64 rsqrt) ...
     rec = lambda s: j_to_u64(s[0]) + j_to_u64(s[1])  # noqa: E731
     np.testing.assert_array_equal(ring_to_u64(eng.x0_sh[0] + eng.x0_sh[1]),
                                   rec(x0_sh))
     for w, jw in zip(eng.weights_sh, weights_sh):
         np.testing.assert_array_equal(ring_to_u64(w[0] + w[1]), rec(jw))
-    # ... while the normalizers may differ by one ring unit (rsqrt)
-    diff = ring_to_u64(eng.n0_fp).view(np.int64) - \
-        j_to_u64(n0_fp).view(np.int64)
-    assert np.abs(diff).max() <= 1
-    np.testing.assert_allclose(eng.forward()[0].numpy(), jax_side["z"],
-                               atol=2e-2)
+    assert torch.equal(eng.n0_fp, mpc_state_from_jax(
+        x0_sh, weights_sh, n0_fp, device="cpu")[2])
+    # ... so the revealed logits are bit-equal without carrying state
+    np.testing.assert_array_equal(eng.forward()[0].numpy(), jax_side["z"])
+
+
+def test_norm0_host_encode_vs_jax():
+    """Every degree 0..199,999: the port's host normalizer, encoded, against
+    JAX's ``norm0`` (XLA float32 ``rsqrt``), encoded; compared as uint64."""
+    deg = np.arange(200_000, dtype=np.float32)
+    got = ring_to_u64(MpcProtocol().encode_public(
+        torch.from_numpy(norm0_host(deg))))
+    want = j_to_u64(JaxProtocol().encode_public(jax_norm0(jnp.asarray(deg))))
+    diff = got.view(np.int64) - want.view(np.int64)
+    np.testing.assert_array_equal(np.nonzero(diff)[0], [88738])
+    assert np.abs(diff).max() == 1
+    assert norm0_host(np.array([0.0]))[0] == 0.0  # gcn.h:219-221
 
 
 def test_tracks_plaintext(jax_side):

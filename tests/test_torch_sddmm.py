@@ -1,6 +1,7 @@
 """The SDDMM (K5): the kernel's plain version against the JAX package's
 ``PallasSddmm`` (interpret mode, then ``edge_scores``) and
-``sddmm_reference``, and the wrapper's edge order and input checks, on the
+``sddmm_reference``, the wrapper's edge order, choice of kernel
+instantiation and input checks, and the sweep tool's source edits, on the
 CPU.
 
 Tolerance: 1e-5 x max|ref|, the same f32 products summed in another order
@@ -14,7 +15,10 @@ import torch
 
 from cognn_tpu.ops.bcsr import BLOCK, build_bcsr
 from cognn_tpu.ops.pallas_sddmm import PallasSddmm, sddmm_reference
-from cognn_tpu_torch.ops.sddmm import Sddmm, sddmm_plain
+from cognn_tpu_torch.ops import sddmm as sddmm_mod
+from cognn_tpu_torch.ops.sddmm import Sddmm, launch_shape, sddmm_plain
+from cognn_tpu_torch.tools.sweep_sddmm import VARIANTS
+from cognn_tpu_torch.tools.sweep_spmm import variant_source
 
 torch.set_num_threads(1)
 
@@ -28,8 +32,10 @@ def rows(n, D, seed):
 
 def scores(src, dst, n_src, n_dst, a, b):
     k = Sddmm(src, dst, n_src, n_dst, CPU)
+    before = sddmm_mod.launches
     out = k(torch.from_numpy(a), torch.from_numpy(b)).numpy()
-    assert k.launches == 0  # CPU tensors run the plain version
+    # CPU tensors run the plain version
+    assert (k.launches, sddmm_mod.launches) == (0, before)
     return out
 
 
@@ -105,3 +111,32 @@ def test_wrapper_rejects(a, b):
     with pytest.raises((TypeError, ValueError)):
         k(a, b)
     assert k.launches == 0
+
+
+@pytest.mark.parametrize("d,ptrs,want", [
+    (1, (256, 512), (1, 1)),  # 4-byte rows: scalar, 1 lane an edge
+    (1, (260, 512), (1, 1)),
+    (3, (256, 512), (1, 4)),  # 12-byte rows: scalar, 3 lanes and 1 idle
+    (3, (256, 516), (1, 4)),
+    (7, (256, 512), (1, 8)),
+    (7, (260, 512), (1, 8)),
+    (16, (256, 512), (4, 4)),  # 4 lanes x float4
+    (16, (260, 512), (1, 16)),  # a one element into its storage
+    (16, (256, 520), (1, 16)),  # b misaligned
+    (33, (256, 512), (1, 32)),  # scalar lanes of 2 elements
+    (33, (260, 512), (1, 32)),
+    (64, (256, 512), (4, 16)),
+    (64, (256, 516), (1, 32)),
+])
+def test_launch_shape(d, ptrs, want):
+    """The instantiation the wrapper picks for rows a, b at ``ptrs``."""
+    assert launch_shape(d, 4, ptrs) == want
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_sweep_variant_edits_apply(variant):
+    """Every variant the sweep tool builds still finds its edits' targets
+    in the kernel source, each exactly once."""
+    edits, _ = VARIANTS[variant]
+    src = variant_source(edits, "sddmm")
+    assert all(new in src for _, new in edits)

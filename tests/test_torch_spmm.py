@@ -140,6 +140,13 @@ def test_csr_counts_duplicates():
     np.testing.assert_array_equal(m.counts, [1, 2, 1])
 
 
+def test_edge_list_expands_counts():
+    k = Spmm([0, 0, 2, 1], [1, 1, 1, 0], 3, 3, CPU)
+    src, dst = k.edge_list()
+    np.testing.assert_array_equal(src, [1, 0, 0, 2])
+    np.testing.assert_array_equal(dst, [0, 1, 1, 1])
+
+
 def test_csr_rejects_out_of_range():
     with pytest.raises(ValueError):
         build_csr_by_dst([0, 3], [0, 0], 3, 3)
