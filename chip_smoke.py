@@ -59,18 +59,38 @@
    the library calls. K5 at the cells' shapes is on the kernels line
    (``sddmm_f32[cell]``, shape only), with its launches counted in step
    5's forwards like every other kernel's: no engine launches it, so 0.
-7. Drives the slice-3 path: the aggregation-kernel microbenchmark
+7. Drives the training main path of each cell (``variant="opt"``, fresh
+   engines), plaintext and secret-shared (``train_phase``): every kernel
+   count set to 0, EPOCHS_CHECKED epochs through ``run_epochs_scan``, the
+   counts read; each epoch must launch 3L - 2 SpMMs (f32 or ring) and, in
+   the secret-shared epoch, 3L - 1 share matmuls (K3; ``epoch_counts``).
+   The same epochs on the ``sparse`` backend must give equal revealed
+   weights and metrics (secret-shared) or weights within
+   TRAIN_WEIGHTS_TOL_OF_MAX of the largest (plaintext); the secret-shared
+   weights must lie within MPC_WEIGHTS_TOL of the plaintext port's. Then
+   EPOCHS_TIMED epochs through ``run_epochs`` and ``run_epochs_scan``
+   (ms an epoch, edge-iterations/s), one profiled epoch, K3 at the
+   epoch's backward shapes held ``torch.equal`` and timed warm and cold
+   (``ring_matmul_phase``, ``ring_matmul_i64[cell train]`` on the kernels
+   line), and the accuracy run (``accuracy_phase``): ACCURACY_EPOCHS epochs
+   from fresh engines, the loss must fall and the two engines' final test
+   accuracies agree within ACC_AGREE; the rows of
+   results/matrix/SUMMARY.md at the same settings are printed beside them.
+8. Drives the slice-3 path: the aggregation-kernel microbenchmark
    (``cognn_tpu_torch.tools.bench_spmm``) at its defaults (V = 32768,
    E = 131072, D = 16, band 2048). The CSR kernel's, K4's and K5's counts
    are set to 0 just before and read just after: each must have launched
    exactly as often as the tool called it, and the tool raises unless each
    output lies within 1e-5 (CSR, K5) or 5e-3 (K4, bf16 operands) of its
-   float64 oracle. Then the tool's own K4 and K5 are held and timed as in
-   step 6 (K5 on the tool's edges, duplicates and order as they come, and
-   on its ``h`` as both operands). K4 is also held on a graph of two full
-   16x16 tiles whose counts reach 300, so bf16 rounds some of them.
+   float64 oracle. Then the CSR kernel (on random rows), the tool's own
+   K4 and K5 are held and timed as in steps 4 and 6 (K5 on the tool's
+   edges, duplicates and order as they come, and on its ``h`` as both
+   operands). K4 is also held on a graph of two full 16x16 tiles whose
+   counts reach 300, so bf16 rounds some of them.
 
-The line before the last is one JSON object with each kernel's numbers; the
+The line before the last is one JSON object with each kernel's numbers
+(the engines' kernels also with their ``training_launches`` and
+``launches_per_epoch``); the
 last line is ``{"ok": true, "device": {...}}``. Any failure raises and the
 exit code is not 0; without a card the script exits 1 before printing a
 result.
@@ -112,6 +132,25 @@ MPC_LOGITS_TOL = 2e-2  # secret-shared vs plaintext, tests/test_mpc.py:90
 # ... and as a share of the largest plaintext logit (PubMed's are small)
 MPC_LOGITS_TOL_OF_MAX = 1e-2
 FORWARDS = 3  # requests per model
+EPOCHS_CHECKED = 2  # training epochs held to the sparse path, per engine
+EPOCHS_TIMED = 5  # epochs per timing window
+ACCURACY_EPOCHS = 90  # the epochs of results/matrix/SUMMARY.md's runs
+# plaintext kernel vs sparse weights after EPOCHS_CHECKED epochs, as a share
+# of the largest weight (f32 sums in another order; a ReLU' mask can flip)
+TRAIN_WEIGHTS_TOL_OF_MAX = 1e-4
+MPC_WEIGHTS_TOL = 5e-3  # secret-shared vs plaintext weights, test_mpc.py:104
+ACC_AGREE = 0.01  # secret-shared vs plaintext final test accuracy
+# (cell, secret-shared) -> the row of results/matrix/SUMMARY.md at the same
+# settings (synthetic Planetoid, vertex v to party v mod P, opt, seed 42,
+# exact truncation; tools/run_cluster.py:433-436): name, final loss and
+# test accuracy of the JAX package's 90-epoch run. Printed, not gated.
+MATRIX_ROWS = {
+    ("cora_2p", False): ("opt_accuracy_2p cora (:74)", 0.2924, 0.8956),
+    ("cora_2p", True): ("mpc_opt_accuracy_2p cora (:20)", 0.2922, 0.8962),
+    ("pubmed_4p", False): ("opt_accuracy_4p pubmed (:81)", 0.0520, 0.9814),
+    ("pubmed_4p", True): ("mpc_opt_accuracy_4p pubmed (:27)", 0.0517,
+                          0.9815),
+}
 TIMED_CALLS = 100  # calls per timing window
 PLAIN_CALLS = 20  # the integer plain versions are slow
 RAGGED_MATMUL = (3, 1001, 777, 19)  # B, N, K, M: no multiple of any tile
@@ -585,9 +624,9 @@ def cold_ms(fn, calls: int = 20) -> float:
 
 
 def ring_matmul_phase(cell: str, shapes) -> dict:
-    """K3 at the secret-shared forward's PreScatter shapes on random
-    full-range operands, measured with ``torch.bmm`` on int64 CUDA tensors
-    as the library call, and timed once more with the L2 cold
+    """K3 at ``shapes`` (B, N, K, M) on random full-range operands,
+    measured with ``torch.bmm`` on int64 CUDA tensors as the library call,
+    and timed once more with the L2 cold
     (:func:`cold_ms`; ``cold_ms`` is their sum). The bound is the larger of
     A, B and C once at 3.35 TB/s and the kernel's 36 byte-limb products a
     multiply-add at the int8 tensor-core rate."""
@@ -857,10 +896,8 @@ def n0_fp_check(cell: str, mpc) -> None:
     """The encoded normalizers on the card against the CPU's: the engine's
     own ``n0_fp`` (the host's float64 rsqrt, encoded on the card) and the
     encode of every degree 0..199,999, each against the same encode on the
-    CPU. Any difference fails. Also counts the degrees where the card's
-    ``torch.rsqrt`` (``norm0``, the plaintext engine's scale) differs from
-    the host's value before the encode."""
-    from cognn_tpu_torch.engine.gas import norm0, norm0_host
+    CPU. Any difference fails."""
+    from cognn_tpu_torch.engine.gas import norm0_host
 
     enc = mpc.proto.encode_public
     for name, deg in (("cell", mpc.plan.in_deg),
@@ -868,10 +905,8 @@ def n0_fp_check(cell: str, mpc) -> None:
         host = torch.from_numpy(norm0_host(deg))
         got = (mpc.n0_fp if name == "cell" else enc(host.cuda())).cpu()
         diff = got - enc(host)
-        rsqrt = (norm0(torch.from_numpy(deg).cuda()).cpu() != host).sum()
         print(f"n0_fp {cell} {name}: {(diff != 0).sum().item()} of "
-              f"{diff.numel()} differ card vs CPU (torch.rsqrt on the card "
-              f"differs from the host's f32 at {rsqrt.item()})", flush=True)
+              f"{diff.numel()} differ card vs CPU", flush=True)
         if (diff != 0).any():
             raise AssertionError(f"{cell}: n0_fp card vs CPU off by "
                                  f"{diff.abs().max().item()}")
@@ -917,10 +952,10 @@ def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
     return counts
 
 
-def profile_phase(cell: str, engine) -> None:
-    """Where one request's time goes: the device time of every kernel and
-    copy (torch.profiler, CUPTI) against the request's wall time, which the
-    profiler itself inflates."""
+def profile_phase(label: str, fn) -> None:
+    """Where one call of ``fn`` (a request, an epoch) spends its time: the
+    device time of every kernel and copy (torch.profiler, CUPTI) against
+    the call's wall time, which the profiler itself inflates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -928,7 +963,7 @@ def profile_phase(cell: str, engine) -> None:
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.forward()
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name = {}
@@ -938,11 +973,160 @@ def profile_phase(cell: str, engine) -> None:
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    print(f"profile {cell}: wall_ms={wall_ms!r} device_busy_ms={busy_ms!r} "
+    print(f"profile {label}: wall_ms={wall_ms!r} device_busy_ms={busy_ms!r} "
           f"device_ops={sum(n for n, _ in by_name.values())} "
           f"idle_share={1 - busy_ms / wall_ms!r}", flush=True)
     for name, (n, us) in top:
         print(f"  {us / 1e3!r} ms x{n} {name[:110]}", flush=True)
+
+
+def epoch_counts(L: int, mpc: bool) -> dict:
+    """Kernel launches of one training epoch of L layers. Aggregations: L
+    forward, 2L backward phases less the two Apply-only ones (phase % L ==
+    0). Secret-shared share matmuls (K3): L forward, L - 1 delta @ W^T (the
+    engines skip layer 0's, which nothing reads), L weight gradients."""
+    agg = 3 * L - 2
+    return {"spmm_csr_f32": 0 if mpc else agg,
+            "spmm_csr_i64": agg if mpc else 0,
+            "ring_matmul_i64": 3 * L - 1 if mpc else 0, "sddmm_f32": 0}
+
+
+def train_shapes(parties: int, V: int, dims) -> list:
+    """(B, N, K, M) of the secret-shared epoch's K3 launches that its
+    forward does not make, in the order they run: delta @ W^T for layers
+    L-1..1, then the weight gradients h_in^T @ delta for layers L-1..0
+    (layer 0's on the prepped x0^T)."""
+    dims = [int(d) for d in dims]
+    L = len(dims) - 1
+    return ([(parties, V, dims[l + 1], dims[l]) for l in range(L - 1, 0, -1)]
+            + [(parties, dims[l], V, dims[l + 1])
+               for l in range(L - 1, -1, -1)])
+
+
+def weights_of(engine) -> list:
+    """The engine's (revealed) weights, one [P, d_in, d_out] per layer."""
+    if hasattr(engine, "weights_sh"):
+        return engine.reveal_weights()
+    return list(engine.weights)
+
+
+def train_phase(label: str, engine, reference, spmms, plain_weights=None):
+    """The training main path: EPOCHS_CHECKED epochs of ``engine`` (kernel
+    path) with every kernel count set to 0 just before and read just after,
+    which must be EPOCHS_CHECKED times :func:`epoch_counts`; then the same
+    epochs of ``reference`` (``sparse``, built alike). Secret-shared: the
+    revealed weights and every epoch's metrics ``torch.equal`` to the
+    reference's, and the weights within MPC_WEIGHTS_TOL of
+    ``plain_weights`` (the plaintext port's after the same epochs);
+    plaintext: weights within TRAIN_WEIGHTS_TOL_OF_MAX of the reference's
+    largest. Returns the counts and the revealed weights."""
+    mpc = plain_weights is not None
+    want = {k: EPOCHS_CHECKED * v
+            for k, v in epoch_counts(engine.L, mpc).items()}
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(spmms)
+    metrics = engine.run_epochs_scan(EPOCHS_CHECKED)
+    counts = read_counts(spmms)
+    peak = torch.cuda.max_memory_allocated()
+    if counts != want:
+        raise AssertionError(f"{label}: kernel launches {counts} in "
+                             f"{EPOCHS_CHECKED} epochs of {engine.L} layers, "
+                             f"want {want}")
+    m_ref = reference.run_epochs_scan(EPOCHS_CHECKED)
+    w, w_ref = weights_of(engine), weights_of(reference)
+    m = check_metrics(label, engine, metrics)
+    if mpc:
+        for k in metrics:
+            if not torch.equal(metrics[k], m_ref[k]):
+                raise AssertionError(f"{label}: metric {k} differs from the "
+                                     "sparse path")
+        if not all(torch.equal(a, b) for a, b in zip(w, w_ref)):
+            raise AssertionError(f"{label}: weights differ from the sparse "
+                                 "path")
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(w, plain_weights))
+        if not err <= MPC_WEIGHTS_TOL:
+            raise AssertionError(f"{label}: weights {err} from the "
+                                 f"plaintext port's, tolerance "
+                                 f"{MPC_WEIGHTS_TOL}")
+        held_line = (f"weights and metrics equal to sparse; max|W - "
+                     f"W_plain|={err!r} (tol {MPC_WEIGHTS_TOL})")
+    else:
+        err = max((a - b).abs().max().item() for a, b in zip(w, w_ref))
+        tol = TRAIN_WEIGHTS_TOL_OF_MAX * max(b.abs().max().item()
+                                             for b in w_ref)
+        if not err <= tol:
+            raise AssertionError(f"{label}: weights {err} from the sparse "
+                                 f"path, tolerance {tol}")
+        held_line = f"max|W - W_sparse|={err!r} (tol {tol!r})"
+    print(f"train {label}: {EPOCHS_CHECKED} epochs, launches={counts} "
+          f"{held_line}; peak device memory {peak} B ({resident} B resident "
+          f"before) loss={m['loss'].tolist()}", flush=True)
+    return counts, w
+
+
+def time_epochs(label: str, engine, n_edges: int) -> None:
+    """EPOCHS_TIMED epochs through ``run_epochs`` and again through
+    ``run_epochs_scan``, each ending in ``torch.cuda.synchronize()``: ms an
+    epoch and edge-iterations/s (``bench.py``'s definition: epoch_layers x
+    edges / s an epoch)."""
+    for name in ("run_epochs", "run_epochs_scan"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        getattr(engine, name)(EPOCHS_TIMED)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / EPOCHS_TIMED
+        print(f"epoch {label} {name}({EPOCHS_TIMED}): ms_per_epoch={ms!r} "
+              f"edge_iters_per_s={engine.epoch_layers * n_edges / ms * 1e3!r}"
+              f" (epoch_layers {engine.epoch_layers}, edges {n_edges})",
+              flush=True)
+
+
+def accuracy_phase(cell: str, plan, param) -> None:
+    """ACCURACY_EPOCHS epochs of ``run_epochs_scan`` from fresh kernel-path
+    engines, plaintext and secret-shared. Fails unless the loss (mean over
+    parties) falls from the first epoch to the last in both, and the two
+    final test accuracies (mean over parties) agree within ACC_AGREE.
+    Prints each beside its row of results/matrix/SUMMARY.md (the JAX
+    package's 90-epoch run at the same settings: test accuracy the mean over
+    parties, loss the last party's, as tools/summarize_matrix.py reads its
+    logs), which is not a gate."""
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    final = {}
+    for mpc in (False, True):
+        label = f"{cell} mpc" if mpc else cell
+        engine = (MpcGasEngine if mpc else GasEngine)(plan, param, "opt",
+                                                      device="cuda")
+        t0 = time.perf_counter()
+        m = engine.metrics_host(engine.run_epochs_scan(ACCURACY_EPOCHS))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        loss = m["loss"].mean(0).tolist()
+        acc = m["test_acc"].mean(0).tolist()
+        last_loss = float(m["loss"][-1, -1])
+        if not np.isfinite(loss).all() or not loss[-1] < loss[0]:
+            raise AssertionError(f"accuracy {label}: loss {loss[0]!r} at "
+                                 f"epoch 1, {loss[-1]!r} at epoch "
+                                 f"{ACCURACY_EPOCHS}")
+        final[mpc] = acc[-1]
+        row, row_loss, row_acc = MATRIX_ROWS[cell, mpc]
+        print(f"accuracy {label}: {ACCURACY_EPOCHS} epochs in {s!r} s; "
+              f"loss {loss[0]!r} -> {loss[-1]!r}, test_acc {acc[0]!r} -> "
+              f"{acc[-1]!r} (per party {m['test_acc'][:, -1].tolist()}, "
+              f"train_acc {float(m['train_acc'][:, -1].mean())!r}), last "
+              f"party's loss {last_loss!r}; results/matrix/SUMMARY.md {row}: "
+              f"loss {row_loss}, test_acc {row_acc} (test_acc "
+              f"{acc[-1] - row_acc:+.5f}, last party's loss "
+              f"{last_loss - row_loss:+.5f} from it)",
+              flush=True)
+    if not abs(final[True] - final[False]) <= ACC_AGREE:
+        raise AssertionError(f"accuracy {cell}: secret-shared test_acc "
+                             f"{final[True]!r}, plaintext {final[False]!r}, "
+                             f"more than {ACC_AGREE} apart")
 
 
 def main() -> None:
@@ -1009,16 +1193,35 @@ def main() -> None:
         k3 = ring_matmul_phase(cell, shapes)
 
         f32_counts, z_plain = forward_phase(cell, engine, reference, spmms)
-        profile_phase(cell, engine)
+        profile_phase(cell, engine.forward)
         n0_fp_check(cell, mpc)
         counts = mpc_forward_phase(cell, mpc, mpc_sparse, z_plain, spmms)
-        profile_phase(f"{cell} mpc", mpc)
+        profile_phase(f"{cell} mpc", mpc.forward)
         n_src, n_dst = engine.spmm.n_src, engine.spmm.n_dst
         src, dst = engine.spmm.edge_list()
         merged_phase(cell, SpmmMerged(src, dst, n_src, n_dst, "cuda"), widths,
                      SpmmMerged(*dup.edge_list(), n_src, n_dst, "cuda"))
         k5 = Sddmm(src, dst, n_src, n_dst, "cuda")
         sddmm = sddmm_phase(cell, k5, random_operands(k5, widths, 5))
+
+        # the training main path: kernel engine and sparse reference,
+        # plaintext (False) and secret-shared (True), built fresh
+        train = {mpc: tuple((MpcGasEngine if mpc else GasEngine)(
+            plan, param, "opt", aggregation=agg, device="cuda")
+            for agg in ("auto", "sparse")) for mpc in (False, True)}
+        train_spmms = spmms + (train[False][0].spmm, train[True][0].spmm)
+        n_edges = int(plan.loc_valid.sum() + plan.rem_valid.sum())
+        f32_train, w_plain = train_phase(cell, *train[False], train_spmms)
+        time_epochs(cell, train[False][0], n_edges)
+        profile_phase(f"{cell} epoch", train[False][0].run_epoch)
+        mpc_train, _ = train_phase(f"{cell} mpc", *train[True], train_spmms,
+                                   w_plain)
+        time_epochs(f"{cell} mpc", train[True][0], n_edges)
+        profile_phase(f"{cell} mpc epoch", train[True][0].run_epoch)
+        del train
+        k3_shapes = train_shapes(parties, plan.V, dims)
+        k3_train = ring_matmul_phase(f"{cell} train", k3_shapes)
+        accuracy_phase(cell, plan, param)
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{
@@ -1028,6 +1231,8 @@ def main() -> None:
             "replaces": replaces,
             "jax_path": jax_path,
             "launches": f32_counts["spmm_csr_f32"],
+            "training_launches": f32_train["spmm_csr_f32"],
+            "launches_per_epoch": f32_train["spmm_csr_f32"] // EPOCHS_CHECKED,
             "shape": f"one forward: D in {list(widths)}, {csr}",
             **f32,
         }, {
@@ -1038,6 +1243,8 @@ def main() -> None:
             "jax_path": f"share instantiation (_bcsr_agg_shares, "
                         f"cognn_tpu/mpc/engine.py:269): {jax_path}",
             "launches": counts["spmm_csr_i64"],
+            "training_launches": mpc_train["spmm_csr_i64"],
+            "launches_per_epoch": mpc_train["spmm_csr_i64"] // EPOCHS_CHECKED,
             "shape": f"one secret-shared forward: 2 shares, D in "
                      f"{list(widths)}, {csr}",
             **ring,
@@ -1048,9 +1255,29 @@ def main() -> None:
             "replaces": RING_MATMUL_REPLACES,
             "jax_path": RING_MATMUL_JAX_PATH,
             "launches": counts["ring_matmul_i64"],
+            "training_launches": mpc_train["ring_matmul_i64"],
+            "launches_per_epoch": mpc_train["ring_matmul_i64"]
+            // EPOCHS_CHECKED,
             "shape": "one secret-shared forward: " + ", ".join(
                 f"[{b},{n},{k}]@[{b},{k},{m}]" for b, n, k, m in shapes),
             **k3,
+        }, {
+            "name": f"ring_matmul_i64[{cell} train]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/ring_matmul.cu",
+            "replaces": RING_MATMUL_REPLACES,
+            "jax_path": RING_MATMUL_JAX_PATH,
+            "launches": mpc_train["ring_matmul_i64"],
+            "launches_per_epoch": mpc_train["ring_matmul_i64"]
+            // EPOCHS_CHECKED,
+            "shape": "the secret-shared epoch's backward shapes, "
+                     f"{len(k3_shapes)} of its "
+                     f"{mpc_train['ring_matmul_i64'] // EPOCHS_CHECKED} "
+                     "launches an epoch (launches: all of them in "
+                     f"{EPOCHS_CHECKED} epochs): " + ", ".join(
+                         f"[{b},{n},{k}]@[{b},{k},{m}]"
+                         for b, n, k, m in k3_shapes),
+            **k3_train,
         }, {
             "name": f"sddmm_f32[{cell}]",
             "route": "cuda",
@@ -1067,11 +1294,21 @@ def main() -> None:
     case, bench_counts = bench_phase()
     full_tile_check()
     v, d = case.v, case.h.shape[1]
+    csr = kernel_phase("bench", case.spmm, with_repeats(case.spmm), (d,))
     k4 = merged_phase("bench", case.merged, (d,))
     k5 = sddmm_phase("bench", case.sddmm, [(case.h, case.h)])
     bench_shape = (f"the tool's graph: V={v} E={len(case.src)} band 2048 "
                    f"({case.spmm.nnz} distinct edges), D={d}")
     kernels += [{
+        "name": "spmm_csr_f32[bench]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/spmm.cu",
+        "replaces": "cognn_tpu/ops/pallas_spmm.py:27",
+        "jax_path": "tools/bench_spmm.py:104-119, 186 (PallasSpmm)",
+        "launches": bench_counts["spmm_csr_f32"],
+        "shape": f"{bench_shape}, random rows",
+        **csr,
+    }, {
         "name": "spmm_merged_bf16[bench]",
         "route": "cuda",
         "source": "cognn_tpu_torch/csrc/spmm_merged.cu",

@@ -12,9 +12,10 @@ same name there. The port imports ``torch`` and numpy and nothing of JAX or of
   ops/          CSR structure, segment sum, the SpMM kernels (f32 rows and
                 int64 shares), the exact mod-2^64 matmul, the kernel loader
   csrc/         CUDA C++ kernel sources (built for sm_90a on first use)
-  engine/       device plan and the stacked-party GAS engine (inference)
+  engine/       device plan and the stacked-party GAS engine (CoGNN-Opt
+                inference and training)
   mpc/          secret-sharing protocol and the stacked-party secret-shared
-                GAS engine (inference)
+                GAS engine (CoGNN-Opt inference and training)
   convert       weights and secret-shared state carried over from the JAX
                 engines
 

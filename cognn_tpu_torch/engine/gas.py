@@ -1,11 +1,15 @@
 """The GAS engine on PyTorch (port of ``cognn_tpu/engine/gas.py``):
-CoGNN-Opt full-graph inference with all P parties stacked on one device.
+CoGNN-Opt full-graph inference and training with all P parties stacked on one
+device.
 
 Per layer l the forward runs the PreScatter matmul, the source-side ``norm0``
 scale (skipped on layer 0), the aggregation with its destination-side scale,
 then ReLU, or on the last layer a softmax and the metrics — the schedule of
 the reference's `optimize-gcn/gcn.h` and of :class:`cognn_tpu.models.oracle.
-GasOracle`, quirks included.
+GasOracle`, quirks included. A training epoch (:meth:`GasEngine.run_epoch`)
+runs those L phases, then 2L backward phases, each layer's SGD step followed
+by the mean of the weight replicas over the parties. ``norm0`` is computed
+once per plan on the host (:func:`norm0_host`).
 
 Aggregation backends (``aggregation=``):
 
@@ -18,9 +22,8 @@ Aggregation backends (``aggregation=``):
   * ``"sparse"`` — plain torch port of the XLA take + segment-sum path
     (remote slots, halo transpose, local slots, masked gather).
 
-Training (``run_epoch``), the unopt variants, the dense backend and the
-sharded mode come with later slices of the port and raise
-``NotImplementedError`` here.
+The unopt variants, the dense backend and the sharded mode come with later
+slices of the port and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -39,18 +42,12 @@ from cognn_tpu_torch.utils.device import resolve_device
 from cognn_tpu_torch.utils.glibc_rand import glorot_init
 
 
-def norm0(deg: torch.Tensor) -> torch.Tensor:
-    """(deg+1)^-1/2 with the reference's zero-degree-is-zero quirk
-    (`optimize-gcn/gcn.h:219-221`)."""
-    return torch.where(deg == 0, torch.zeros_like(deg), torch.rsqrt(deg + 1.0))
-
-
 def norm0_host(deg: np.ndarray) -> np.ndarray:
-    """:func:`norm0` on the host for the public degrees of a plan: (deg+1)^-1/2
-    in float64, rounded once to float32, degree 0 giving 0. The same on every
-    device, so the secret-shared engine encodes it; ``torch.rsqrt`` on the card
-    and on the CPU, and XLA's ``rsqrt``, each differ from it in the last bit
-    for some degrees."""
+    """The GCN normalizer of the public degrees of a plan, on the host:
+    (deg+1)^-1/2 in float64, rounded once to float32, with the reference's
+    zero-degree-is-zero quirk (`optimize-gcn/gcn.h:219-221`). The same on
+    every device; ``torch.rsqrt`` on the card and on the CPU, and XLA's
+    ``rsqrt``, each differ from it in the last bit for some degrees."""
     deg = np.asarray(deg, np.float64)
     out = np.zeros_like(deg)
     nz = deg != 0
@@ -66,6 +63,10 @@ class _Comm:
         # recv[..., j, i, :, :] (leading axes, e.g. the share axis, ride along)
         return send.transpose(-4, -3)
 
+    def weight_mean(self, w: torch.Tensor) -> torch.Tensor:
+        """The replicas' mean over the party axis, one per party again."""
+        return w.mean(dim=0, keepdim=True).expand_as(w)
+
 
 @dataclasses.dataclass
 class _PlanArrays:
@@ -73,6 +74,7 @@ class _PlanArrays:
 
     vertex_mask: torch.Tensor
     in_deg: torch.Tensor
+    n0: torch.Tensor  # [P, V] f32, norm0_host(in_deg)
     border: torch.Tensor
     labels: torch.Tensor
     num_local: torch.Tensor
@@ -92,15 +94,19 @@ class _PlanArrays:
     gather_ok_from: torch.Tensor  # [P, P, V], diagonal False
 
 
-def _plan_arrays(t: Dict[str, torch.Tensor]) -> _PlanArrays:
-    """The engine's view of :func:`plan_tensors`' output."""
+def _plan_arrays(plan: DevicePlan,
+                 t: Dict[str, torch.Tensor]) -> _PlanArrays:
+    """The engine's view of :func:`plan_tensors`' output ``t`` for
+    ``plan``."""
     ok = t["gather_ok"]  # [P, P, V]
     P = ok.shape[0]
     eye = torch.eye(P, dtype=torch.bool, device=ok.device)
-    derived = ("gather_ok_self", "gather_ok_from")
+    derived = ("n0", "gather_ok_self", "gather_ok_from")
     return _PlanArrays(**{f.name: t[f.name]
                           for f in dataclasses.fields(_PlanArrays)
                           if f.name not in derived},
+                       n0=torch.from_numpy(norm0_host(plan.in_deg)).to(
+                           ok.device),
                        gather_ok_self=ok[torch.arange(P), torch.arange(P)],
                        gather_ok_from=ok & ~eye[..., None])
 
@@ -136,6 +142,13 @@ def gcn_metrics(arr: _PlanArrays,
         "border_test_acc": acc(test & border),
         "num_border": (valid & border).sum(-1),
     }
+
+
+def stack_epochs(per_epoch: List[Dict[str, torch.Tensor]]
+                 ) -> Dict[str, torch.Tensor]:
+    """Per-epoch metric dicts ([P] each) -> one dict of [P, n] tensors."""
+    return {k: torch.stack([m[k] for m in per_epoch], dim=1)
+            for k in per_epoch[0]}
 
 
 def _take_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -179,8 +192,8 @@ class GasEngine:
     """GAS schedules over a :class:`DevicePlan`, parties stacked on one
     device.
 
-    ``variant``: "opt" or "opt_inference" (same forward; "opt" training
-    comes with the training slice). ``aggregation``: "auto"/"bcsr" (the CUDA
+    ``variant``: "opt" or "opt_inference" (the same forward and epoch; the
+    JAX package runs both). ``aggregation``: "auto"/"bcsr" (the CUDA
     SpMM kernel) or "sparse" (plain torch). ``device`` defaults to "cuda" and
     raises when there is no card.
     """
@@ -209,9 +222,10 @@ class GasEngine:
         self.param = param
         self.variant = variant
         self.L = param.num_layers
+        self.epoch_layers = 3 * self.L  # forward + 2 backward phases a layer
         self.P = plan.num_parties
         tensors = plan_tensors(plan, self.device)
-        self.arr = _plan_arrays(tensors)
+        self.arr = _plan_arrays(plan, tensors)
         self.aggregation = "sparse" if aggregation == "sparse" else "bcsr"
         self.spmm = (_build_spmm_stacked(plan, self.device)
                      if self.aggregation == "bcsr" else None)
@@ -239,7 +253,7 @@ class GasEngine:
             # gather/OGA/halo/gather in one kernel over the flat edge matrix
             upd = self.spmm(h.reshape(P * V, D))
             agg = h + upd.reshape(h.shape)
-            return agg * norm0(arr.in_deg)[..., None] if dest_scale else agg
+            return agg * arr.n0[..., None] if dest_scale else agg
 
         # remote slots: segment-sum into per-destination-party mirror rows,
         # then the halo exchange (the reference's mirror-update shipping,
@@ -266,30 +280,104 @@ class GasEngine:
                                 0.0).sum(dim=1)
 
         # deferred destination-side scale (gcn.h:470-484)
-        return agg * norm0(arr.in_deg)[..., None] if dest_scale else agg
+        return agg * arr.n0[..., None] if dest_scale else agg
 
     # ------------------------------------------------------------------
     def _forward_body(self, comm: _Comm, arr: _PlanArrays,
                       weights: List[torch.Tensor], x0: torch.Tensor):
         """Inference: L forward phases; returns (logits, prob, metrics)."""
         h = x0
-        n0 = norm0(arr.in_deg)[..., None]
         for l in range(self.L):
             h = torch.bmm(h, weights[l])  # PreScatter matmul, pvd,pde->pve
             if l != 0:
-                h = h * n0  # source-side scale skipped on phase 0
+                h = h * arr.n0[..., None]  # source-side scale skipped on 0
             z = self._aggregate(comm, arr, h, dest_scale=True)
             h = torch.relu(z) if l != self.L - 1 else z
         prob = torch.softmax(h, dim=-1)
         return h, prob, gcn_metrics(arr, prob)
 
+    def _predict_apply(self, arr: _PlanArrays, h: torch.Tensor):
+        """Prediction-layer Apply: softmax, metrics, p - y masked to the
+        local train split (gcn.h:557-643)."""
+        prob = torch.softmax(h, dim=-1)
+        y_hot = torch.nn.functional.one_hot(arr.labels, h.shape[-1]).to(
+            h.dtype)
+        pm = torch.where(arr.train_mask[..., None], prob - y_hot, 0.0)
+        return pm, gcn_metrics(arr, prob)
+
+    def _epoch_opt(self, comm: _Comm, arr: _PlanArrays,
+                   weights: List[torch.Tensor], x0: torch.Tensor):
+        """One CoGNN-Opt training epoch, 3L phases (cognn_tpu/engine/gas.py
+        :745-792); returns (new weights, the forward's metrics)."""
+        L = self.L
+        lr = float(np.float32(self.param.learning_rate))
+        n0 = arr.n0[..., None]
+        inv_train = (1.0 / arr.train_n.to(torch.float32))[:, None, None]
+        weights = list(weights)
+        h = x0
+        h_in: List[torch.Tensor] = [None] * L
+        z: List[torch.Tensor] = [None] * L
+        metrics = None
+
+        # forward phases 0..L-1 (PreScatter matmul + deferred scaling)
+        for l in range(L):
+            h_in[l] = h
+            h = torch.bmm(h, weights[l])
+            if l != 0:
+                h = h * n0  # source-side scale skipped on phase 0
+            h = self._aggregate(comm, arr, h, dest_scale=True)
+            z[l] = h
+            if l != L - 1:
+                h = torch.relu(h)
+            else:
+                h, metrics = self._predict_apply(arr, h)
+
+        # backward phases L..3L-1 as the reference runs them: aggregation on
+        # every phase except phase % L == 0 (Apply-only, ss_…h:709-732), no
+        # destination scale on the epoch's last phase; Apply alternates
+        # first-of-two (delta @ W^T) and second-of-two (weight gradient, SGD,
+        # weight mean) per layer
+        g = None
+        for phase in range(L, 3 * L):
+            l = L - 1 - (phase - L) // 2
+            first = (phase - L) % 2 == 0
+            if phase % L != 0:
+                h = self._aggregate(comm, arr, h * n0,
+                                    dest_scale=phase + 1 != 3 * L)
+            if first:
+                if l != L - 1:
+                    h = h * (z[l] > 0)  # BackwardNNWithoutAH relu' mask
+                # layer 0's delta @ W0^T (cognn_tpu/engine/gas.py:786) is
+                # never read: the epoch ends after its weight gradient
+                if l != 0:
+                    g = torch.bmm(h, weights[l].transpose(1, 2))
+            else:
+                d = torch.bmm(h_in[l].transpose(1, 2), h) * inv_train
+                weights[l] = comm.weight_mean(weights[l] - lr * d)
+                h = g
+        return weights, metrics
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
-    def run_epoch(self):
-        raise NotImplementedError(
-            "training epochs (_epoch_opt) come with the training slice of "
-            "the port")
+    @torch.no_grad()
+    def run_epoch(self) -> Dict[str, torch.Tensor]:
+        """One training epoch; returns its forward's per-party metrics."""
+        self.weights, metrics = self._epoch_opt(_Comm(), self.arr,
+                                                self.weights, self.x0)
+        return metrics
+
+    def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns the last one's metrics."""
+        metrics = None
+        for _ in range(n):
+            metrics = self.run_epoch()
+        return metrics
+
+    def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
+        as the JAX package's scan returns them."""
+        return stack_epochs([self.run_epoch() for _ in range(n)])
 
     @staticmethod
     def metrics_host(metrics: Dict[str, torch.Tensor]

@@ -1,6 +1,6 @@
 """Secret-shared GAS engine on PyTorch (port of ``cognn_tpu/mpc/engine.py``):
-CoGNN-Opt full-graph inference on additive shares in Z_2^64, all P parties
-stacked on one device.
+CoGNN-Opt full-graph inference and training on additive shares in Z_2^64, all
+P parties stacked on one device.
 
 Every vertex embedding and weight is a share pair ``int64[2, P, ...]``
 (:mod:`cognn_tpu_torch.mpc.protocol`). Per layer l the forward runs, as
@@ -12,6 +12,15 @@ Every vertex embedding and weight is a share pair ``int64[2, P, ...]``
   * aggregation, linear on the shares (never reconstructs), then the
     destination-side scale;
   * ReLU by sign mask, or on the last layer the reveal, softmax and metrics.
+
+A training epoch (:meth:`MpcGasEngine.run_epoch`) runs
+the schedule of the plaintext epoch (``cognn_tpu_torch/engine/gas.py``
+``_epoch_opt``) on shares, as ``cognn_tpu/mpc/engine.py:1176-1232`` does: the
+prediction Apply re-shares p - y, the backward matmuls and the weight
+gradients go through the same exact mod-2^64 kernel (layer 0's gradient on
+the hoisted reconstruct of x0ᵀ), each gradient is scaled by the public
+1/train_n and the learning rate with truncation, and the weight replicas are
+averaged by a wrapping share sum over the parties and a public 1/P scale.
 
 Aggregation backends (``aggregation=``):
 
@@ -25,17 +34,17 @@ Aggregation backends (``aggregation=``):
     no counterpart), the halo transpose on the party axis, the scatter of
     mirror rows and the masked gather adds.
 
-Training (``variant="opt"``, ``run_epoch``), the unopt variants, the dense
-backend and the sharded mode come with later slices of the port and raise
-``NotImplementedError``. The JAX package's TPU workarounds (uint32 limbs,
-byte planes and their exactness guards, ``compile_mode="phase"``,
-``prng_impl``, the fusion barrier) are not ported.
+The unopt variants, the dense backend and the sharded mode come with later
+slices of the port and raise ``NotImplementedError``. The JAX package's TPU
+workarounds (uint32 limbs, byte planes and their exactness guards,
+``compile_mode="phase"``, ``prng_impl``, the fusion barrier) are not ported.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Dict, List, Sequence
 
+import numpy as np
 import torch
 
 from cognn_tpu_torch.config import GNNParam
@@ -48,7 +57,7 @@ from cognn_tpu_torch.engine.gas import (
     _PlanArrays,
     _take_rows,
     gcn_metrics,
-    norm0_host,
+    stack_epochs,
 )
 from cognn_tpu_torch.engine.plan import DevicePlan, plan_tensors, set_split
 from cognn_tpu_torch.mpc.protocol import Protocol
@@ -59,7 +68,8 @@ from cognn_tpu_torch.utils.glibc_rand import glorot_init
 
 class MpcGasEngine:
     """Secret-shared GAS engine over a :class:`DevicePlan`, parties stacked
-    on one device; ``variant="opt_inference"``.
+    on one device; ``variant``: "opt" or "opt_inference" (the same forward
+    and epoch; the JAX package runs both).
 
     ``fp``: fixed-point spec (64-bit ring, 16 fractional bits by default).
     ``truncation``: "exact" or "probabilistic". ``seed``: the Glorot
@@ -77,14 +87,10 @@ class MpcGasEngine:
                  prng_seed: int = 0, mode: str = "stacked",
                  aggregation: str = "auto", nonlinear: str = "reconstruct",
                  device="cuda"):
-        if variant == "opt":
-            raise NotImplementedError(
-                "secret-shared training (variant 'opt', run_epoch) comes "
-                "with the secret-shared training slice of the port")
         if variant in ("unopt", "unopt_inference"):
             raise NotImplementedError(
                 f"variant {variant!r} comes with the unopt slice of the port")
-        if variant != "opt_inference":
+        if variant not in ("opt", "opt_inference"):
             raise ValueError(variant)
         if mode != "stacked":
             raise NotImplementedError(
@@ -103,9 +109,10 @@ class MpcGasEngine:
         self.proto = Protocol(fp or FixedPointSpec(), truncation,
                               nonlinear=nonlinear)
         self.L = param.num_layers
+        self.epoch_layers = 3 * self.L  # forward + 2 backward phases a layer
         self.P = plan.num_parties
         tensors = plan_tensors(plan, self.device)
-        self.arr: _PlanArrays = _plan_arrays(tensors)
+        self.arr: _PlanArrays = _plan_arrays(plan, tensors)
         self.aggregation = "sparse" if aggregation == "sparse" else "bcsr"
         self.spmm = (_build_spmm_stacked(plan, self.device)
                      if self.aggregation == "bcsr" else None)
@@ -124,8 +131,11 @@ class MpcGasEngine:
         ]
         # public fixed-point normalizers (norm0 quirk preserved), from the
         # host's float64 rsqrt: bit for bit the same on the card and the CPU
-        n0_fp = self.proto.encode_public(torch.from_numpy(
-            norm0_host(plan.in_deg)).to(self.device))
+        n0_fp = self.proto.encode_public(self.arr.n0)
+        # per-party gradient scale 1/train_n (gcn.h:667-676), [P]
+        self.inv_train_fp = self.proto.encode_public(torch.from_numpy(
+            np.float32(1.0) / plan.train_n.astype(np.float32)).to(
+                self.device))
         self.install_state(x0_sh, weights_sh, n0_fp)
 
     def install_state(self, x0_sh: torch.Tensor,
@@ -154,9 +164,11 @@ class MpcGasEngine:
         self.x0_sh = x0_sh
         self.weights_sh: List[torch.Tensor] = list(weights_sh)
         self.n0_fp = n0_fp
-        # the layer-0 A side is loop-invariant: reconstruct x0 once
+        # the layer-0 A sides are loop-invariant: reconstruct x0 once, and
+        # for training keep x0ᵀ contiguous for the layer-0 weight gradient
         # (cognn_tpu/mpc/engine.py:591-597)
         self.x0_prep = self.proto.prep_matmul_a(x0_sh)
+        self.x0_prep_bwd = self.x0_prep.transpose(1, 2).contiguous()
 
     # ------------------------------------------------------------------
     def _scale_rows(self, sh: torch.Tensor,
@@ -227,10 +239,99 @@ class MpcGasEngine:
         prob = torch.softmax(z, dim=-1)
         return z, prob, gcn_metrics(self.arr, prob)
 
-    def run_epoch(self):
-        raise NotImplementedError(
-            "secret-shared training epochs come with the secret-shared "
-            "training slice of the port")
+    def _predict_apply(self, arr: _PlanArrays, z_sh: torch.Tensor):
+        """Prediction Apply (cognn_tpu/mpc/engine.py:1115-1125): reveal,
+        softmax and the plaintext metrics; shares of p - y zeroed outside
+        the local train split (gcn.h:636-641)."""
+        y_hot = torch.nn.functional.one_hot(arr.labels,
+                                            self.param.num_labels)
+        prob, pm_sh = self.proto.softmax_pred(self._gen, z_sh, y_hot)
+        pm_sh = self.proto.mask_mul(pm_sh, arr.train_mask[..., None])
+        return pm_sh, gcn_metrics(arr, prob)
+
+    def _weight_mean(self, w_sh: torch.Tensor) -> torch.Tensor:
+        """Cross-party share sum (wrapping int64) and a public 1/P scale,
+        one replica per party again (gcn.h:747-802)."""
+        if self.P == 1:
+            return w_sh
+        total = w_sh.sum(dim=1, keepdim=True)
+        return self.proto.scale_const(self._gen, total,
+                                      1.0 / self.P).expand_as(w_sh)
+
+    def _epoch_opt(self) -> Dict[str, torch.Tensor]:
+        """One CoGNN-Opt training epoch on shares, 3L phases
+        (cognn_tpu/mpc/engine.py:1176-1232); updates ``weights_sh`` and
+        returns the forward's metrics."""
+        L, proto, gen, arr = self.L, self.proto, self._gen, self.arr
+        lr = float(self.param.learning_rate)
+        weights = list(self.weights_sh)
+        h = None
+        h_in: List[torch.Tensor] = [None] * L
+        z_mask: List[torch.Tensor] = [None] * L
+        metrics = None
+
+        for l in range(L):
+            h_in[l] = h  # layer 0's is x0, prepped as x0_prep_bwd
+            if l == 0:
+                h = proto.matmul_prepped(gen, self.x0_prep, weights[0])
+            else:
+                h = proto.matmul(gen, h, weights[l])
+                h = self._scale_rows(h, self.n0_fp)
+            h = self._aggregate(arr, h, dest_scale=True)
+            if l != L - 1:
+                z_mask[l] = proto.sign_mask(h)
+                h = proto.mask_mul(h, z_mask[l])
+            else:
+                h, metrics = self._predict_apply(arr, h)
+
+        # backward phases: the plaintext epoch's schedule on shares
+        g = None
+        for phase in range(L, 3 * L):
+            l = L - 1 - (phase - L) // 2
+            first = (phase - L) % 2 == 0
+            if phase % L != 0:
+                h = self._aggregate(arr, self._scale_rows(h, self.n0_fp),
+                                    dest_scale=phase + 1 != 3 * L)
+            if first:
+                if l != L - 1:
+                    h = proto.mask_mul(h, z_mask[l])
+                # layer 0's delta @ W0^T (cognn_tpu/mpc/engine.py:1217-1218)
+                # is never read: the epoch ends after its weight gradient.
+                # Under exact truncation no value depends on the random
+                # words it would have drawn.
+                if l != 0:
+                    g = proto.matmul(gen, h, weights[l].transpose(-1, -2))
+            else:
+                if l == 0:
+                    d = proto.matmul_prepped(gen, self.x0_prep_bwd, h)
+                else:
+                    d = proto.matmul(gen, h_in[l].transpose(-1, -2), h)
+                # per-party gradient scale 1/train_n, SGD (gcn.h:667-678)
+                d = proto.scale_rows(gen, d,
+                                     self.inv_train_fp[:, None, None])
+                step = proto.scale_const(gen, d, lr)
+                weights[l] = self._weight_mean(proto.sub(weights[l], step))
+                h = g
+        self.weights_sh = weights
+        return metrics
+
+    @torch.no_grad()
+    def run_epoch(self) -> Dict[str, torch.Tensor]:
+        """One secret-shared training epoch; returns its forward's
+        per-party metrics (from the revealed prediction)."""
+        return self._epoch_opt()
+
+    def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns the last one's metrics."""
+        metrics = None
+        for _ in range(n):
+            metrics = self.run_epoch()
+        return metrics
+
+    def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
+        as the JAX package's scan returns them."""
+        return stack_epochs([self.run_epoch() for _ in range(n)])
 
     @torch.no_grad()
     def reveal_weights(self) -> List[torch.Tensor]:

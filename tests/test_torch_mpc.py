@@ -149,13 +149,14 @@ def test_backends_and_modes_agree():
 
 
 def test_later_slices_raise():
-    for kw in (dict(variant="opt"), dict(variant="unopt"),
-               dict(variant="unopt_inference"), dict(mode="sharded"),
-               dict(aggregation="dense")):
+    for kw in (dict(variant="unopt"), dict(variant="unopt_inference"),
+               dict(mode="sharded"), dict(aggregation="dense")):
         with pytest.raises(NotImplementedError, match="slice"):
             torch_engine(2, **kw)
-    with pytest.raises(NotImplementedError, match="slice"):
-        torch_engine(2).run_epoch()
+    # the training slice: both opt variants train, as in the JAX package
+    for variant in ("opt", "opt_inference"):
+        metrics = torch_engine(2, variant=variant).run_epoch()
+        assert tuple(metrics["loss"].shape) == (2,)
     with pytest.raises(NotImplementedError, match="later slice"):
         torch_engine(2, fp=FixedPointSpec(ring=RingSpec(32)))
     with pytest.raises(ValueError):
