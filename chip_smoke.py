@@ -27,8 +27,8 @@
    cases (``edge_case_check``): a hub row of 1500 entries, rows one below,
    at and one above every batch size, empty first, middle and last rows,
    an odd source count (the ring's share 1 misaligned at odd D), at
-   D = 1, 3, 7, 16, 33, 64, and on ``h`` one element into its storage
-   (the scalar path). The SDDMM (K5) is held on its own edge cases
+   D = 1, 3, 7, 16, 33, 64, 500, 1433, and on ``h`` one element into its
+   storage (the scalar path). The SDDMM (K5) is held on its own edge cases
    (``sddmm_edge_check``): every D from 1 to 64, edge counts of 0, 1 and
    one below, at and one above every power of two to 1024 (its batch,
    warp and block sizes), repeated edges and edges on the last rows,
@@ -76,7 +76,28 @@
    from fresh engines, the loss must fall and the two engines' final test
    accuracies agree within ACC_AGREE; the rows of
    results/matrix/SUMMARY.md at the same settings are printed beside them.
-8. Drives the slice-3 path: the aggregation-kernel microbenchmark
+8. Drives the CoGNN (unopt) paths of each cell, whose layer-0
+   aggregation runs at the full input width (1433 on Cora, 500 on
+   PubMed): the f32 SpMM held ``torch.equal`` to its plain version on
+   integer-valued rows at that width (``integer_rows_check``), both SpMMs
+   measured at one unopt forward's widths (input and hidden) as in step 4;
+   then ``unopt_forward_phase``: FORWARDS ``unopt_inference`` requests of
+   the plaintext engine (logits against ``sparse`` as in step 5), of the
+   secret-shared engine with the hoisted agg(x0) and without it (each
+   logits ``torch.equal`` to the hoisted ``sparse`` engine's, within
+   MPC_LOGITS_TOL of the plaintext port's), the counts read around each: a
+   forward launches 2 SpMMs plaintext, 1 ring SpMM and 2 K3 hoisted, 2 ring
+   SpMMs and 2 K3 not hoisted (``forward_counts``), one more request of
+   each profiled; ``unopt_train_phase``: EPOCHS_CHECKED ``unopt`` epochs of
+   fresh engines, plaintext, hoisted and not hoisted, each held to its
+   ``sparse`` twin as in step 7, the hoisted and not hoisted revealed
+   weights and metrics ``torch.equal``; an epoch launches 3 SpMMs, or 2
+   ring SpMMs (3 not hoisted) and 5 K3 (``epoch_counts``); then
+   EPOCHS_TIMED_UNOPT epochs of each timed and one profiled; and the
+   accuracy run for unopt beside its matrix rows. The kernels line gains
+   the unopt SpMMs (``[cell unopt]``, one unopt forward's widths) and K3
+   (the opt forward's shapes, timed once) with their unopt launches.
+9. Drives the slice-3 path: the aggregation-kernel microbenchmark
    (``cognn_tpu_torch.tools.bench_spmm``) at its defaults (V = 32768,
    E = 131072, D = 16, band 2048). The CSR kernel's, K4's and K5's counts
    are set to 0 just before and read just after: each must have launched
@@ -134,22 +155,36 @@ MPC_LOGITS_TOL_OF_MAX = 1e-2
 FORWARDS = 3  # requests per model
 EPOCHS_CHECKED = 2  # training epochs held to the sparse path, per engine
 EPOCHS_TIMED = 5  # epochs per timing window
+# the unopt epochs' timing window: at 5 epochs the host's noise moved ms an
+# epoch by up to 56% within one call (PERF.md §6)
+EPOCHS_TIMED_UNOPT = 20
 ACCURACY_EPOCHS = 90  # the epochs of results/matrix/SUMMARY.md's runs
 # plaintext kernel vs sparse weights after EPOCHS_CHECKED epochs, as a share
 # of the largest weight (f32 sums in another order; a ReLU' mask can flip)
 TRAIN_WEIGHTS_TOL_OF_MAX = 1e-4
 MPC_WEIGHTS_TOL = 5e-3  # secret-shared vs plaintext weights, test_mpc.py:104
 ACC_AGREE = 0.01  # secret-shared vs plaintext final test accuracy
-# (cell, secret-shared) -> the row of results/matrix/SUMMARY.md at the same
-# settings (synthetic Planetoid, vertex v to party v mod P, opt, seed 42,
-# exact truncation; tools/run_cluster.py:433-436): name, final loss and
+# (cell, secret-shared, variant) -> the row of results/matrix/SUMMARY.md at
+# the same settings (synthetic Planetoid, vertex v to party v mod P, seed
+# 42, exact truncation; tools/run_cluster.py:433-436): name, final loss and
 # test accuracy of the JAX package's 90-epoch run. Printed, not gated.
 MATRIX_ROWS = {
-    ("cora_2p", False): ("opt_accuracy_2p cora (:74)", 0.2924, 0.8956),
-    ("cora_2p", True): ("mpc_opt_accuracy_2p cora (:20)", 0.2922, 0.8962),
-    ("pubmed_4p", False): ("opt_accuracy_4p pubmed (:81)", 0.0520, 0.9814),
-    ("pubmed_4p", True): ("mpc_opt_accuracy_4p pubmed (:27)", 0.0517,
-                          0.9815),
+    ("cora_2p", False, "opt"): ("opt_accuracy_2p cora (:74)", 0.2924,
+                                0.8956),
+    ("cora_2p", True, "opt"): ("mpc_opt_accuracy_2p cora (:20)", 0.2922,
+                               0.8962),
+    ("pubmed_4p", False, "opt"): ("opt_accuracy_4p pubmed (:81)", 0.0520,
+                                  0.9814),
+    ("pubmed_4p", True, "opt"): ("mpc_opt_accuracy_4p pubmed (:27)",
+                                 0.0517, 0.9815),
+    ("cora_2p", False, "unopt"): ("unopt_accuracy_2p cora (:105)", 0.2746,
+                                  0.8925),
+    ("cora_2p", True, "unopt"): ("mpc_unopt_accuracy_2p cora (:47)",
+                                 0.2748, 0.8925),
+    ("pubmed_4p", False, "unopt"): ("unopt_accuracy_4p pubmed (:112)",
+                                    0.0444, 0.9839),
+    ("pubmed_4p", True, "unopt"): ("mpc_unopt_accuracy_4p pubmed (:54)",
+                                   0.0443, 0.9840),
 }
 TIMED_CALLS = 100  # calls per timing window
 PLAIN_CALLS = 20  # the integer plain versions are slow
@@ -160,9 +195,11 @@ ALL_ONES_MATMULS = ((1, 33, 4096, 5), (1, 33, 4097, 5), (2, 70, 5000, 19))
 # the SpMM edge cases: a hub row above 1024 entries, and rows one below, at
 # and one above 4, 8, 16 and 32 entries (a row's batch in csrc/spmm.cu is
 # kBatch x slots: 8 as shipped, 4 to 16 in the variants sweep_spmm builds);
-# widths from 1 to past one 32-lane chunk of 16-byte loads
+# widths from 1 to past one 32-lane chunk of 16-byte loads, and the cells'
+# input widths, which the unopt layer-0 aggregation runs at (column chunks
+# of 32 lanes: f32 4 and 45, ring 8 and 45)
 EDGE_DEGREES = (3, 4, 5, 7, 8, 9, 15, 16, 17, 31, 32, 33, 1500)
-EDGE_WIDTHS = (1, 3, 7, 16, 33, 64)
+EDGE_WIDTHS = (1, 3, 7, 16, 33, 64, 500, 1433)
 EDGE_N_SRC = 3001
 # K5's edge cases: every D from 1 to 64 (1 to 16 lanes an edge, float4 and
 # scalar loads, one chunk and more); edge counts of 0, 1, and one below, at
@@ -863,10 +900,22 @@ def check_metrics(cell: str, engine, metrics) -> dict:
     return m
 
 
+def forward_counts(engine) -> dict:
+    """Kernel launches of one forward: an aggregation a layer (f32 SpMM, or
+    the ring SpMM on shares) less layer 0's where the secret-shared unopt
+    engine hoists agg(x0), and on shares a K3 a layer."""
+    mpc = hasattr(engine, "weights_sh")
+    agg = engine.L - (mpc and engine.unopt and engine.hoist_agg)
+    return {"spmm_csr_f32": 0 if mpc else agg,
+            "spmm_csr_i64": agg if mpc else 0,
+            "ring_matmul_i64": engine.L if mpc else 0, "sddmm_f32": 0}
+
+
 def forward_phase(cell: str, engine, reference, spmms):
     """The plaintext main path: FORWARDS inference requests, with every
-    kernel count set to 0 just before and read just after. Returns the
-    counts and the logits."""
+    kernel count set to 0 just before and read just after, which must be
+    FORWARDS times :func:`forward_counts`. Returns the counts and the
+    logits."""
     reset_counts(spmms)
     (z, prob, metrics), times = timed_forwards(engine)
     counts = read_counts(spmms)
@@ -874,8 +923,7 @@ def forward_phase(cell: str, engine, reference, spmms):
     P, V, C = engine.P, engine.plan.V, engine.param.num_labels
     if tuple(z.shape) != (P, V, C):
         raise AssertionError(f"{cell}: logits shape {tuple(z.shape)}")
-    want = {"spmm_csr_f32": FORWARDS * engine.L, "spmm_csr_i64": 0,
-            "ring_matmul_i64": 0, "sddmm_f32": 0}
+    want = {k: FORWARDS * v for k, v in forward_counts(engine).items()}
     if counts != want:
         raise AssertionError(f"{cell}: kernel launches {counts} in "
                              f"{FORWARDS} forwards of {engine.L} layers, "
@@ -914,8 +962,9 @@ def n0_fp_check(cell: str, mpc) -> None:
 
 def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
     """The secret-shared main path: FORWARDS inference requests, with every
-    kernel count set to 0 just before and read just after. Returns the
-    counts."""
+    kernel count set to 0 just before and read just after, which must be
+    FORWARDS times :func:`forward_counts`. The logits must equal
+    ``mpc_sparse``'s. Returns the counts."""
     reset_counts(spmms)
     torch.cuda.reset_peak_memory_stats()
     (z, prob, metrics), times = timed_forwards(mpc)
@@ -926,8 +975,7 @@ def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
     if tuple(z.shape) != (P, V, C) or z.dtype != torch.float32:
         raise AssertionError(f"{cell}: mpc logits {z.dtype} "
                              f"{tuple(z.shape)}")
-    want = {"spmm_csr_f32": 0, "spmm_csr_i64": FORWARDS * mpc.L,
-            "ring_matmul_i64": FORWARDS * mpc.L, "sddmm_f32": 0}
+    want = {k: FORWARDS * v for k, v in forward_counts(mpc).items()}
     if counts != want:
         raise AssertionError(f"{cell}: mpc kernel launches {counts} in "
                              f"{FORWARDS} forwards of {mpc.L} layers, "
@@ -980,12 +1028,19 @@ def profile_phase(label: str, fn) -> None:
         print(f"  {us / 1e3!r} ms x{n} {name[:110]}", flush=True)
 
 
-def epoch_counts(L: int, mpc: bool) -> dict:
-    """Kernel launches of one training epoch of L layers. Aggregations: L
-    forward, 2L backward phases less the two Apply-only ones (phase % L ==
-    0). Secret-shared share matmuls (K3): L forward, L - 1 delta @ W^T (the
-    engines skip layer 0's, which nothing reads), L weight gradients."""
-    agg = 3 * L - 2
+def epoch_counts(engine) -> dict:
+    """Kernel launches of one training epoch of the engine's L layers.
+    Aggregations: opt, L forward and 2L backward phases less the two
+    Apply-only ones (phase % L == 0); unopt, L forward and L - 1 between
+    the backward layers, less layer 0's where the secret-shared engine
+    hoists agg(x0). Secret-shared share matmuls (K3): L forward, L - 1
+    delta @ W^T (the engines skip layer 0's, which nothing reads), L weight
+    gradients."""
+    L, mpc = engine.L, hasattr(engine, "weights_sh")
+    if engine.unopt:
+        agg = 2 * L - 1 - (mpc and engine.hoist_agg)
+    else:
+        agg = 3 * L - 2
     return {"spmm_csr_f32": 0 if mpc else agg,
             "spmm_csr_i64": agg if mpc else 0,
             "ring_matmul_i64": 3 * L - 1 if mpc else 0, "sddmm_f32": 0}
@@ -1019,10 +1074,9 @@ def train_phase(label: str, engine, reference, spmms, plain_weights=None):
     reference's, and the weights within MPC_WEIGHTS_TOL of
     ``plain_weights`` (the plaintext port's after the same epochs);
     plaintext: weights within TRAIN_WEIGHTS_TOL_OF_MAX of the reference's
-    largest. Returns the counts and the revealed weights."""
+    largest. Returns the counts, the revealed weights and the metrics."""
     mpc = plain_weights is not None
-    want = {k: EPOCHS_CHECKED * v
-            for k, v in epoch_counts(engine.L, mpc).items()}
+    want = {k: EPOCHS_CHECKED * v for k, v in epoch_counts(engine).items()}
     torch.cuda.synchronize()
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1064,29 +1118,31 @@ def train_phase(label: str, engine, reference, spmms, plain_weights=None):
     print(f"train {label}: {EPOCHS_CHECKED} epochs, launches={counts} "
           f"{held_line}; peak device memory {peak} B ({resident} B resident "
           f"before) loss={m['loss'].tolist()}", flush=True)
-    return counts, w
+    return counts, w, metrics
 
 
-def time_epochs(label: str, engine, n_edges: int) -> None:
-    """EPOCHS_TIMED epochs through ``run_epochs`` and again through
+def time_epochs(label: str, engine, n_edges: int,
+                epochs: int = EPOCHS_TIMED) -> None:
+    """``epochs`` epochs through ``run_epochs`` and again through
     ``run_epochs_scan``, each ending in ``torch.cuda.synchronize()``: ms an
     epoch and edge-iterations/s (``bench.py``'s definition: epoch_layers x
     edges / s an epoch)."""
     for name in ("run_epochs", "run_epochs_scan"):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        getattr(engine, name)(EPOCHS_TIMED)
+        getattr(engine, name)(epochs)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / EPOCHS_TIMED
-        print(f"epoch {label} {name}({EPOCHS_TIMED}): ms_per_epoch={ms!r} "
+        ms = (time.perf_counter() - t0) * 1e3 / epochs
+        print(f"epoch {label} {name}({epochs}): ms_per_epoch={ms!r} "
               f"edge_iters_per_s={engine.epoch_layers * n_edges / ms * 1e3!r}"
               f" (epoch_layers {engine.epoch_layers}, edges {n_edges})",
               flush=True)
 
 
-def accuracy_phase(cell: str, plan, param) -> None:
+def accuracy_phase(cell: str, plan, param, variant: str = "opt") -> None:
     """ACCURACY_EPOCHS epochs of ``run_epochs_scan`` from fresh kernel-path
-    engines, plaintext and secret-shared. Fails unless the loss (mean over
+    engines of ``variant``, plaintext and secret-shared (unopt: hoisted).
+    Fails unless the loss (mean over
     parties) falls from the first epoch to the last in both, and the two
     final test accuracies (mean over parties) agree within ACC_AGREE.
     Prints each beside its row of results/matrix/SUMMARY.md (the JAX
@@ -1098,8 +1154,9 @@ def accuracy_phase(cell: str, plan, param) -> None:
 
     final = {}
     for mpc in (False, True):
-        label = f"{cell} mpc" if mpc else cell
-        engine = (MpcGasEngine if mpc else GasEngine)(plan, param, "opt",
+        label = " ".join([cell] + ["unopt"] * (variant == "unopt")
+                         + ["mpc"] * mpc)
+        engine = (MpcGasEngine if mpc else GasEngine)(plan, param, variant,
                                                       device="cuda")
         t0 = time.perf_counter()
         m = engine.metrics_host(engine.run_epochs_scan(ACCURACY_EPOCHS))
@@ -1113,7 +1170,7 @@ def accuracy_phase(cell: str, plan, param) -> None:
                                  f"epoch 1, {loss[-1]!r} at epoch "
                                  f"{ACCURACY_EPOCHS}")
         final[mpc] = acc[-1]
-        row, row_loss, row_acc = MATRIX_ROWS[cell, mpc]
+        row, row_loss, row_acc = MATRIX_ROWS[cell, mpc, variant]
         print(f"accuracy {label}: {ACCURACY_EPOCHS} epochs in {s!r} s; "
               f"loss {loss[0]!r} -> {loss[-1]!r}, test_acc {acc[0]!r} -> "
               f"{acc[-1]!r} (per party {m['test_acc'][:, -1].tolist()}, "
@@ -1124,9 +1181,101 @@ def accuracy_phase(cell: str, plan, param) -> None:
               f"{last_loss - row_loss:+.5f} from it)",
               flush=True)
     if not abs(final[True] - final[False]) <= ACC_AGREE:
-        raise AssertionError(f"accuracy {cell}: secret-shared test_acc "
-                             f"{final[True]!r}, plaintext {final[False]!r}, "
-                             f"more than {ACC_AGREE} apart")
+        raise AssertionError(f"accuracy {cell} {variant}: secret-shared "
+                             f"test_acc {final[True]!r}, plaintext "
+                             f"{final[False]!r}, more than {ACC_AGREE} "
+                             "apart")
+
+
+def integer_rows_check(cell: str, spmm, dup, D: int) -> None:
+    """The f32 SpMM ``torch.equal`` to its plain version on integer-valued
+    rows of width ``D`` (their sums are exact in f32 in any order), on the
+    cell's CSR ``spmm`` and on :func:`with_repeats`' edges ``dup``."""
+    from cognn_tpu_torch.ops.spmm import spmm_plain
+
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.integers(-8, 9, (spmm.n_src, D)).astype(
+        np.float32)).cuda()
+    for what, k in (("", spmm), (" repeated edges", dup)):
+        held(f"kernel {cell} D={D}{what} integer rows", k(h),
+             spmm_plain(k.indptr, k.indices, k.counts, h), None)
+    print(f"kernel {cell} D={D}: equal to plain on integer-valued rows, on "
+          f"the cell's edges and on repeated edges", flush=True)
+
+
+def unopt_forward_phase(cell: str, plan, param, spmms) -> dict:
+    """The unopt inference path (``variant="unopt_inference"``, CoGNN):
+    FORWARDS requests of the plaintext engine (held to ``sparse`` as in
+    :func:`forward_phase`), then of the secret-shared engine hoisted and not
+    hoisted (:func:`mpc_forward_phase`: each ``torch.equal`` to the hoisted
+    ``sparse`` engine's logits, so to each other, and within
+    MPC_LOGITS_TOL of the plaintext port's), every kernel count set to 0
+    just before each and read just after; one more request of each
+    profiled. Returns the counts by engine."""
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    variant = "unopt_inference"
+    plain, plain_sparse = (GasEngine(plan, param, variant, aggregation=agg,
+                                     device="cuda")
+                           for agg in ("auto", "sparse"))
+    mpc = {label: MpcGasEngine(plan, param, variant, hoist_agg=hoist,
+                               device="cuda")
+           for label, hoist in (("hoisted", True), ("not hoisted", False))}
+    mpc_sparse = MpcGasEngine(plan, param, variant, aggregation="sparse",
+                              device="cuda")
+    spmms = spmms + (plain.spmm, *(e.spmm for e in mpc.values()))
+    counts = {}
+    counts["plaintext"], z_plain = forward_phase(f"{cell} unopt", plain,
+                                                 plain_sparse, spmms)
+    profile_phase(f"{cell} unopt", plain.forward)
+    for label, engine in mpc.items():
+        counts[label] = mpc_forward_phase(f"{cell} unopt mpc {label}",
+                                          engine, mpc_sparse, z_plain, spmms)
+        profile_phase(f"{cell} unopt mpc {label}", engine.forward)
+    return counts
+
+
+def unopt_train_phase(cell: str, plan, param, spmms, n_edges: int) -> dict:
+    """The unopt training path (``variant="unopt"``, fresh engines):
+    :func:`train_phase` for the plaintext engine, then the secret-shared
+    engine hoisted and not hoisted, each beside its ``sparse`` twin; the
+    hoisted and the not hoisted engines' revealed weights and metrics must
+    be ``torch.equal``. Then EPOCHS_TIMED_UNOPT epochs of each kernel-path
+    engine timed (:func:`time_epochs`) and one profiled. Returns the counts
+    by engine."""
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    pairs = {"plaintext": tuple(
+        GasEngine(plan, param, "unopt", aggregation=agg, device="cuda")
+        for agg in ("auto", "sparse"))}
+    for label, hoist in (("hoisted", True), ("not hoisted", False)):
+        pairs[label] = tuple(
+            MpcGasEngine(plan, param, "unopt", aggregation=agg,
+                         hoist_agg=hoist, device="cuda")
+            for agg in ("auto", "sparse"))
+    spmms = spmms + tuple(pair[0].spmm for pair in pairs.values())
+    counts, trained = {}, {}
+    counts["plaintext"], w_plain, _ = train_phase(
+        f"{cell} unopt", *pairs["plaintext"], spmms)
+    for label in ("hoisted", "not hoisted"):
+        counts[label], *trained[label] = train_phase(
+            f"{cell} unopt mpc {label}", *pairs[label], spmms, w_plain)
+    (w_h, m_h), (w_n, m_n) = trained["hoisted"], trained["not hoisted"]
+    if not (all(torch.equal(a, b) for a, b in zip(w_h, w_n))
+            and all(torch.equal(m_h[k], m_n[k]) for k in m_h)):
+        raise AssertionError(f"{cell} unopt: hoisted and not hoisted "
+                             "epochs reveal different weights or metrics")
+    print(f"train {cell} unopt mpc: hoisted and not hoisted revealed "
+          f"weights and metrics equal after {EPOCHS_CHECKED} epochs",
+          flush=True)
+    for label, (engine, _) in pairs.items():
+        name = f"{cell} unopt" + (f" mpc {label}" if label != "plaintext"
+                                  else "")
+        time_epochs(name, engine, n_edges, EPOCHS_TIMED_UNOPT)
+        profile_phase(f"{name} epoch", engine.run_epoch)
+    return counts
 
 
 def main() -> None:
@@ -1211,17 +1360,29 @@ def main() -> None:
             for agg in ("auto", "sparse")) for mpc in (False, True)}
         train_spmms = spmms + (train[False][0].spmm, train[True][0].spmm)
         n_edges = int(plan.loc_valid.sum() + plan.rem_valid.sum())
-        f32_train, w_plain = train_phase(cell, *train[False], train_spmms)
+        f32_train, w_plain, _ = train_phase(cell, *train[False],
+                                            train_spmms)
         time_epochs(cell, train[False][0], n_edges)
         profile_phase(f"{cell} epoch", train[False][0].run_epoch)
-        mpc_train, _ = train_phase(f"{cell} mpc", *train[True], train_spmms,
-                                   w_plain)
+        mpc_train, _, _ = train_phase(f"{cell} mpc", *train[True],
+                                      train_spmms, w_plain)
         time_epochs(f"{cell} mpc", train[True][0], n_edges)
         profile_phase(f"{cell} mpc epoch", train[True][0].run_epoch)
         del train
         k3_shapes = train_shapes(parties, plan.V, dims)
         k3_train = ring_matmul_phase(f"{cell} train", k3_shapes)
         accuracy_phase(cell, plan, param)
+
+        # the unopt path (CoGNN): layer 0 aggregates at the input width
+        unopt_widths = dims[:2]  # one unopt forward's aggregations
+        integer_rows_check(cell, engine.spmm, dup, dims[0])
+        f32_unopt = kernel_phase(f"{cell} unopt", engine.spmm, dup,
+                                 unopt_widths)
+        ring_unopt = ring_spmm_phase(f"{cell} unopt", mpc.spmm, dup,
+                                     unopt_widths, mac_ms)
+        unopt_fwd = unopt_forward_phase(cell, plan, param, spmms)
+        unopt_train = unopt_train_phase(cell, plan, param, spmms, n_edges)
+        accuracy_phase(cell, plan, param, "unopt")
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{
@@ -1289,6 +1450,56 @@ def main() -> None:
                      f"(destination-major), D in {list(widths)}, random "
                      f"rows; sampled_addmm on the same edges",
             **sddmm,
+        }, {
+            "name": f"spmm_csr_f32[{cell} unopt]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/spmm.cu",
+            "replaces": replaces,
+            "jax_path": f"{jax_path}; unopt: layer 0 at the input width",
+            "launches": unopt_fwd["plaintext"]["spmm_csr_f32"],
+            "training_launches": unopt_train["plaintext"]["spmm_csr_f32"],
+            "launches_per_epoch": unopt_train["plaintext"]["spmm_csr_f32"]
+            // EPOCHS_CHECKED,
+            "shape": f"one unopt forward: D in {list(unopt_widths)}, {csr}",
+            **f32_unopt,
+        }, {
+            "name": f"spmm_csr_i64[{cell} unopt]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/spmm.cu",
+            "replaces": replaces,
+            "jax_path": f"share instantiation (_bcsr_agg_shares, "
+                        f"cognn_tpu/mpc/engine.py:269): {jax_path}; unopt: "
+                        f"layer 0 at the input width",
+            "launches": unopt_fwd["not hoisted"]["spmm_csr_i64"],
+            "hoisted_launches": unopt_fwd["hoisted"]["spmm_csr_i64"],
+            "training_launches": unopt_train["not hoisted"]["spmm_csr_i64"],
+            "launches_per_epoch": unopt_train["not hoisted"]["spmm_csr_i64"]
+            // EPOCHS_CHECKED,
+            "hoisted_launches_per_epoch":
+                unopt_train["hoisted"]["spmm_csr_i64"] // EPOCHS_CHECKED,
+            "shape": f"one secret-shared unopt forward without the hoist: "
+                     f"2 shares, D in {list(unopt_widths)}, {csr}; hoisted "
+                     f"D = {dims[1]} only (agg(x0) once, when the state is "
+                     f"installed)",
+            **ring_unopt,
+        }, {
+            "name": f"ring_matmul_i64[{cell} unopt]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/ring_matmul.cu",
+            "replaces": RING_MATMUL_REPLACES,
+            "jax_path": RING_MATMUL_JAX_PATH,
+            "launches": unopt_fwd["hoisted"]["ring_matmul_i64"],
+            "not_hoisted_launches": unopt_fwd["not hoisted"][
+                "ring_matmul_i64"],
+            "training_launches": unopt_train["hoisted"]["ring_matmul_i64"],
+            "launches_per_epoch": unopt_train["hoisted"]["ring_matmul_i64"]
+            // EPOCHS_CHECKED,
+            "shape": "one secret-shared unopt forward, hoisted or not: "
+                     + ", ".join(f"[{b},{n},{k}]@[{b},{k},{m}]"
+                                 for b, n, k, m in shapes)
+                     + " (layer 0's A side agg(x0)); the opt forward's "
+                     "shapes, timed once for both",
+            **k3,
         }]
 
     case, bench_counts = bench_phase()

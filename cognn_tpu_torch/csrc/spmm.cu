@@ -44,7 +44,15 @@
 //   so a warp walks 32 / (GC * GE) rows at once and no lane is idle when D
 //   fills its GC lanes (f32 D = 16: 4 lanes x float4; ring D = 16: 8 lanes
 //   x 16 bytes a share; D = 7: 8 lanes, one idle). A row wider than 32
-//   loads loops over chunks of 32.
+//   loads is cut into chunks of 32 loads, one for each block row along
+//   blockIdx.y (the unopt layer-0 aggregation at the input width: f32
+//   D = 500 4 chunks, D = 1433 45; ring 8 and 45), so a row's chunks run
+//   in parallel: one group walking them in turn leaves too few loads in
+//   flight (f32 D = 1433 on Cora: 16% of its bound, PERF.md §6). As the
+//   blocks are dispatched chunk by chunk, the sources' slices of one chunk
+//   (20 MB for PubMed's ring shares, whose whole 158 MB exceeds L2) are
+//   what L2 holds at a time. Every chunk walks the row's entries again,
+//   from L1 or L2.
 // - A row's entries go in batches of GE * kBatch: slot s takes entries
 //   b + j * GE + s. Each lane loads its slot's (index, count) pairs (the
 //   lanes of a slot read the same words: one transaction), then issues all
@@ -136,8 +144,10 @@ csr_gather_sum(const int32_t* __restrict__ indptr,
   const int beg = indptr[row];
   const int end = indptr[row + 1];
   // the loops run alike in every lane of the group (the shuffles need all
-  // of them); lanes past D load and store nothing
-  for (int c0 = 0; c0 < d; c0 += GC * V) {
+  // of them); lanes past D load and store nothing. Block row blockIdx.y
+  // takes every gridDim.y-th chunk of the row.
+  for (int c0 = static_cast<int>(blockIdx.y) * (GC * V); c0 < d;
+       c0 += static_cast<int>(gridDim.y) * (GC * V)) {
     const int c = c0 + g % GC * V;
     const bool live = c < d;
     T acc[S][V] = {};
@@ -198,7 +208,11 @@ int launch(const int32_t* indptr, const int32_t* indices, const T* counts,
   const int64_t threads = static_cast<int64_t>(n_dst) * GC * kSlots<GC>;
   const unsigned blocks =
       static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  csr_gather_sum<T, S, V, GC><<<blocks, kThreads, 0, stream>>>(
+  // a block row for each chunk of GC * V elements (one at D <= 16);
+  // gridDim.y stops at 65535, and the kernel strides over chunks beyond
+  const int chunks = (d + GC * V - 1) / (GC * V);
+  const dim3 grid(blocks, chunks < 1 ? 1 : chunks > 65535 ? 65535 : chunks);
+  csr_gather_sum<T, S, V, GC><<<grid, kThreads, 0, stream>>>(
       indptr, indices, counts, h, out, h_share, out_share, n_dst, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,15 +1,26 @@
 """The GAS engine on PyTorch (port of ``cognn_tpu/engine/gas.py``):
-CoGNN-Opt full-graph inference and training with all P parties stacked on one
-device.
+full-graph GCN inference and training with all P parties stacked on one
+device, in the two schedules of the reference.
 
-Per layer l the forward runs the PreScatter matmul, the source-side ``norm0``
-scale (skipped on layer 0), the aggregation with its destination-side scale,
-then ReLU, or on the last layer a softmax and the metrics — the schedule of
-the reference's `optimize-gcn/gcn.h` and of :class:`cognn_tpu.models.oracle.
-GasOracle`, quirks included. A training epoch (:meth:`GasEngine.run_epoch`)
-runs those L phases, then 2L backward phases, each layer's SGD step followed
-by the mean of the weight replicas over the parties. ``norm0`` is computed
-once per plan on the host (:func:`norm0_host`).
+CoGNN-Opt (``variant="opt"``, ``"opt_inference"``): per layer l the forward
+runs the PreScatter matmul, the source-side ``norm0`` scale (skipped on
+layer 0), the aggregation with its destination-side scale, then ReLU, or on
+the last layer a softmax and the metrics — the schedule of the reference's
+`optimize-gcn/gcn.h` and of :class:`cognn_tpu.models.oracle.GasOracle`,
+quirks included. A training epoch (:meth:`GasEngine.run_epoch`) runs those
+L phases, then 2L backward phases, each layer's SGD step followed by the
+mean of the weight replicas over the parties.
+
+CoGNN (``variant="unopt"``, ``"unopt_inference"``, the reference's
+`original-gcn`): per layer the ``norm0`` scale (skipped on layer 0) and the
+aggregation come BEFORE the matmul, so layer 0 aggregates the features at
+the full input width; an epoch is 2L phases, each layer's backward (relu'
+mask, delta·Wᵀ, weight gradient, SGD, weight mean) fused into one, with an
+aggregation between backward layers (``cognn_tpu/engine/gas.py:714-737,
+809-850``). As in the JAX engine, agg(x0) is recomputed every forward and
+epoch here; only the secret-shared engine hoists it.
+
+``norm0`` is computed once per plan on the host (:func:`norm0_host`).
 
 Aggregation backends (``aggregation=``):
 
@@ -22,8 +33,8 @@ Aggregation backends (``aggregation=``):
   * ``"sparse"`` — plain torch port of the XLA take + segment-sum path
     (remote slots, halo transpose, local slots, masked gather).
 
-The unopt variants, the dense backend and the sharded mode come with later
-slices of the port and raise ``NotImplementedError`` here.
+The dense backend and the sharded mode come with later slices of the port
+and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -192,8 +203,9 @@ class GasEngine:
     """GAS schedules over a :class:`DevicePlan`, parties stacked on one
     device.
 
-    ``variant``: "opt" or "opt_inference" (the same forward and epoch; the
-    JAX package runs both). ``aggregation``: "auto"/"bcsr" (the CUDA
+    ``variant``: "opt" or "opt_inference" (CoGNN-Opt), "unopt" or
+    "unopt_inference" (CoGNN); the two of a schedule run the same forward
+    and epoch, as in the JAX package. ``aggregation``: "auto"/"bcsr" (the CUDA
     SpMM kernel) or "sparse" (plain torch). ``device`` defaults to "cuda" and
     raises when there is no card.
     """
@@ -201,10 +213,8 @@ class GasEngine:
     def __init__(self, plan: DevicePlan, param: GNNParam,
                  variant: str = "opt", mode: str = "stacked", seed: int = 42,
                  aggregation: str = "auto", device="cuda"):
-        if variant in ("unopt", "unopt_inference"):
-            raise NotImplementedError(
-                f"variant {variant!r} comes with the unopt slice of the port")
-        if variant not in ("opt", "opt_inference"):
+        if variant not in ("opt", "opt_inference", "unopt",
+                           "unopt_inference"):
             raise ValueError(variant)
         if mode != "stacked":
             raise NotImplementedError(
@@ -221,8 +231,10 @@ class GasEngine:
         self.plan = plan
         self.param = param
         self.variant = variant
+        self.unopt = variant.startswith("unopt")
         self.L = param.num_layers
-        self.epoch_layers = 3 * self.L  # forward + 2 backward phases a layer
+        # phases an epoch: L forward, then 2L (opt) or L (unopt) backward
+        self.epoch_layers = (2 if self.unopt else 3) * self.L
         self.P = plan.num_parties
         tensors = plan_tensors(plan, self.device)
         self.arr = _plan_arrays(plan, tensors)
@@ -288,13 +300,26 @@ class GasEngine:
         """Inference: L forward phases; returns (logits, prob, metrics)."""
         h = x0
         for l in range(self.L):
-            h = torch.bmm(h, weights[l])  # PreScatter matmul, pvd,pde->pve
-            if l != 0:
-                h = h * arr.n0[..., None]  # source-side scale skipped on 0
-            z = self._aggregate(comm, arr, h, dest_scale=True)
+            if self.unopt:
+                z = self._unopt_layer(comm, arr, l, h, weights[l])[1]
+            else:
+                h = torch.bmm(h, weights[l])  # PreScatter matmul, pvd,pde->pve
+                if l != 0:
+                    h = h * arr.n0[..., None]  # source-side scale, not on 0
+                z = self._aggregate(comm, arr, h, dest_scale=True)
             h = torch.relu(z) if l != self.L - 1 else z
         prob = torch.softmax(h, dim=-1)
         return h, prob, gcn_metrics(arr, prob)
+
+    def _unopt_layer(self, comm: _Comm, arr: _PlanArrays, l: int,
+                     h: torch.Tensor, w: torch.Tensor):
+        """Layer l of the unopt forward (cognn_tpu/engine/gas.py:722-726):
+        the source-side scale (not on layer 0) and the aggregation at the
+        layer's input width, then the matmul; returns (agg, z)."""
+        if l != 0:
+            h = h * arr.n0[..., None]
+        agg = self._aggregate(comm, arr, h, dest_scale=True)
+        return agg, torch.bmm(agg, w)
 
     def _predict_apply(self, arr: _PlanArrays, h: torch.Tensor):
         """Prediction-layer Apply: softmax, metrics, p - y masked to the
@@ -357,14 +382,51 @@ class GasEngine:
                 h = g
         return weights, metrics
 
+    def _epoch_unopt(self, comm: _Comm, arr: _PlanArrays,
+                     weights: List[torch.Tensor], x0: torch.Tensor):
+        """One CoGNN (unopt) training epoch, 2L phases (cognn_tpu/engine/
+        gas.py:809-850); returns (new weights, the forward's metrics)."""
+        L = self.L
+        lr = float(np.float32(self.param.learning_rate))
+        inv_train = (1.0 / arr.train_n.to(torch.float32))[:, None, None]
+        weights = list(weights)
+        h = x0
+        ah: List[torch.Tensor] = [None] * L  # each layer's aggregated input
+        z: List[torch.Tensor] = [None] * L
+        metrics = None
+
+        for l in range(L):
+            ah[l], z[l] = self._unopt_layer(comm, arr, l, h, weights[l])
+            if l != L - 1:
+                h = torch.relu(z[l])
+            else:
+                h, metrics = self._predict_apply(arr, z[l])
+
+        # one backward phase a layer, the aggregation of delta @ W^T between
+        # layers; no destination scale on the epoch's last phase
+        for k, l in enumerate(reversed(range(L))):
+            if l != L - 1:
+                h = h * (z[l] > 0)  # relu' mask
+            # layer 0's delta @ W0^T (cognn_tpu/engine/gas.py:837) is never
+            # read: the epoch ends after its weight gradient
+            if l != 0:
+                g = torch.bmm(h, weights[l].transpose(1, 2))
+            d = torch.bmm(ah[l].transpose(1, 2), h) * inv_train
+            weights[l] = comm.weight_mean(weights[l] - lr * d)
+            if l != 0:
+                h = self._aggregate(comm, arr, g * arr.n0[..., None],
+                                    dest_scale=L + k + 2 != 2 * L)
+        return weights, metrics
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     @torch.no_grad()
     def run_epoch(self) -> Dict[str, torch.Tensor]:
         """One training epoch; returns its forward's per-party metrics."""
-        self.weights, metrics = self._epoch_opt(_Comm(), self.arr,
-                                                self.weights, self.x0)
+        epoch = self._epoch_unopt if self.unopt else self._epoch_opt
+        self.weights, metrics = epoch(_Comm(), self.arr, self.weights,
+                                      self.x0)
         return metrics
 
     def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:

@@ -1,6 +1,6 @@
 """Secret-shared GAS engine on PyTorch (port of ``cognn_tpu/mpc/engine.py``):
-CoGNN-Opt full-graph inference and training on additive shares in Z_2^64, all
-P parties stacked on one device.
+full-graph GCN inference and training on additive shares in Z_2^64, CoGNN-Opt
+and CoGNN (unopt), all P parties stacked on one device.
 
 Every vertex embedding and weight is a share pair ``int64[2, P, ...]``
 (:mod:`cognn_tpu_torch.mpc.protocol`). Per layer l the forward runs, as
@@ -22,6 +22,16 @@ the hoisted reconstruct of x0ᵀ), each gradient is scaled by the public
 1/train_n and the learning rate with truncation, and the weight replicas are
 averaged by a wrapping share sum over the parties and a public 1/P scale.
 
+The unopt variants (CoGNN, `original-gcn`) run the plaintext engine's unopt
+schedule on shares (``cognn_tpu/mpc/engine.py:1127-1165, 1234-1290``): the
+scale and the aggregation before each layer's matmul, a 2L-phase epoch. Their
+layer-0 aggregation agg(x0), at the full input width, is loop-invariant: with
+``hoist_agg`` (the default) it is computed once when the state is installed
+and reconstructed once as the A side of layer 0's matmul and weight gradient
+(``cognn_tpu/mpc/engine.py:598-633``); ``hoist_agg=False`` aggregates the
+shared features in every forward and epoch, as the reference does. Under
+exact truncation both give the same revealed values.
+
 Aggregation backends (``aggregation=``):
 
   * ``"bcsr"`` (and ``"auto"``) — the ring instantiation of the CUDA SpMM
@@ -34,10 +44,11 @@ Aggregation backends (``aggregation=``):
     no counterpart), the halo transpose on the party axis, the scatter of
     mirror rows and the masked gather adds.
 
-The unopt variants, the dense backend and the sharded mode come with later
-slices of the port and raise ``NotImplementedError``. The JAX package's TPU
-workarounds (uint32 limbs, byte planes and their exactness guards,
-``compile_mode="phase"``, ``prng_impl``, the fusion barrier) are not ported.
+The dense backend and the sharded mode come with later slices of the port
+and raise ``NotImplementedError``. The JAX package's TPU workarounds (uint32
+limbs, byte planes and their exactness guards, ``compile_mode="phase"`` and
+the unopt phase programs, ``prng_impl``, the fusion barrier, the VMEM veto
+of wide aggregations) are not ported.
 """
 
 from __future__ import annotations
@@ -68,16 +79,19 @@ from cognn_tpu_torch.utils.glibc_rand import glorot_init
 
 class MpcGasEngine:
     """Secret-shared GAS engine over a :class:`DevicePlan`, parties stacked
-    on one device; ``variant``: "opt" or "opt_inference" (the same forward
-    and epoch; the JAX package runs both).
+    on one device; ``variant``: "opt" or "opt_inference" (CoGNN-Opt),
+    "unopt" or "unopt_inference" (CoGNN); the two of a schedule run the
+    same forward and epoch, as in the JAX package.
 
     ``fp``: fixed-point spec (64-bit ring, 16 fractional bits by default).
     ``truncation``: "exact" or "probabilistic". ``seed``: the Glorot
     weights' seed; ``prng_seed``: the share randomness' seed (one
     ``torch.Generator`` the engine owns). ``aggregation``: "auto"/"bcsr"
     (the ring SpMM kernel) or "sparse" (plain torch). ``nonlinear``: the
-    sign extraction, "reconstruct" or "bitdecomp". ``device`` defaults to
-    "cuda" and raises when there is no card.
+    sign extraction, "reconstruct" or "bitdecomp". ``hoist_agg`` (unopt
+    only): compute the layer-0 aggregation agg(x0) once, not in every
+    forward and epoch. ``device`` defaults to "cuda" and raises when there
+    is no card.
     """
 
     def __init__(self, plan: DevicePlan, param: GNNParam,
@@ -86,11 +100,9 @@ class MpcGasEngine:
                  truncation: str = "exact", seed: int = 42,
                  prng_seed: int = 0, mode: str = "stacked",
                  aggregation: str = "auto", nonlinear: str = "reconstruct",
-                 device="cuda"):
-        if variant in ("unopt", "unopt_inference"):
-            raise NotImplementedError(
-                f"variant {variant!r} comes with the unopt slice of the port")
-        if variant not in ("opt", "opt_inference"):
+                 hoist_agg: bool = True, device="cuda"):
+        if variant not in ("opt", "opt_inference", "unopt",
+                           "unopt_inference"):
             raise ValueError(variant)
         if mode != "stacked":
             raise NotImplementedError(
@@ -108,8 +120,12 @@ class MpcGasEngine:
         self.param = param
         self.proto = Protocol(fp or FixedPointSpec(), truncation,
                               nonlinear=nonlinear)
+        self.variant = variant
+        self.unopt = variant.startswith("unopt")
+        self.hoist_agg = hoist_agg
         self.L = param.num_layers
-        self.epoch_layers = 3 * self.L  # forward + 2 backward phases a layer
+        # phases an epoch: L forward, then 2L (opt) or L (unopt) backward
+        self.epoch_layers = (2 if self.unopt else 3) * self.L
         self.P = plan.num_parties
         tensors = plan_tensors(plan, self.device)
         self.arr: _PlanArrays = _plan_arrays(plan, tensors)
@@ -145,7 +161,7 @@ class MpcGasEngine:
         (``[2, P, d_in, d_out]`` per layer) and the encoded normalizers
         ``[P, V]`` (all int64 on this engine's device), e.g. from
         :func:`cognn_tpu_torch.convert.mpc_state_from_jax`, and redo the
-        layer-0 hoist."""
+        layer-0 hoist (for unopt with ``hoist_agg``, agg(x0) with it)."""
         P, V = self.P, self.plan.V
         dims = self.param.layer_dims
         want = [("x0_sh", x0_sh, (2, P, V, dims[0])),
@@ -164,11 +180,21 @@ class MpcGasEngine:
         self.x0_sh = x0_sh
         self.weights_sh: List[torch.Tensor] = list(weights_sh)
         self.n0_fp = n0_fp
-        # the layer-0 A sides are loop-invariant: reconstruct x0 once, and
-        # for training keep x0ᵀ contiguous for the layer-0 weight gradient
-        # (cognn_tpu/mpc/engine.py:591-597)
-        self.x0_prep = self.proto.prep_matmul_a(x0_sh)
-        self.x0_prep_bwd = self.x0_prep.transpose(1, 2).contiguous()
+        # the layer-0 A side is loop-invariant: x0 (opt) or, hoisted,
+        # agg(x0) (unopt; its randomness from the engine's generator, not
+        # JAX's fixed key: exact truncation reveals the same values).
+        # Reconstruct it once, and for the training variants keep its
+        # transpose contiguous for the layer-0 weight gradient
+        # (cognn_tpu/mpc/engine.py:587-633)
+        self.x0_prep = self.x0_prep_bwd = None
+        if self.unopt and not self.hoist_agg:
+            return
+        a0 = (self._aggregate(self.arr, x0_sh, dest_scale=True)
+              if self.unopt else x0_sh)
+        self.x0_prep = self.proto.prep_matmul_a(a0)
+        self.x0_prep_bwd = self.x0_prep.transpose(1, 2)
+        if self.variant in ("opt", "unopt"):
+            self.x0_prep_bwd = self.x0_prep_bwd.contiguous()
 
     # ------------------------------------------------------------------
     def _scale_rows(self, sh: torch.Tensor,
@@ -224,20 +250,35 @@ class MpcGasEngine:
         """Full-graph inference in share space: (revealed logits f32
         [P, V, C], prob, metrics)."""
         proto, gen = self.proto, self._gen
-        h = None
+        h = self.x0_sh
         for l in range(self.L):
-            if l == 0:
-                h = proto.matmul_prepped(gen, self.x0_prep,
-                                         self.weights_sh[0])
+            if self.unopt:
+                h = self._unopt_layer(l, h, self.weights_sh[l])[1]
             else:
-                h = proto.matmul(gen, h, self.weights_sh[l])
-                h = self._scale_rows(h, self.n0_fp)
-            h = self._aggregate(self.arr, h, dest_scale=True)
+                if l == 0:
+                    h = proto.matmul_prepped(gen, self.x0_prep,
+                                             self.weights_sh[0])
+                else:
+                    h = proto.matmul(gen, h, self.weights_sh[l])
+                    h = self._scale_rows(h, self.n0_fp)
+                h = self._aggregate(self.arr, h, dest_scale=True)
             if l != self.L - 1:
                 h = proto.relu(h)
         z = proto.reveal(h)
         prob = torch.softmax(z, dim=-1)
         return z, prob, gcn_metrics(self.arr, prob)
+
+    def _unopt_layer(self, l: int, h: torch.Tensor, w: torch.Tensor):
+        """Layer l of the unopt forward on shares (cognn_tpu/mpc/engine.py
+        :1137-1147): the source-side scale (not on layer 0), the aggregation
+        at the layer's input width, then the matmul; layer 0 hoisted takes
+        the prepped agg(x0) instead. Returns (agg or None, z)."""
+        if l == 0 and self.x0_prep is not None:
+            return None, self.proto.matmul_prepped(self._gen, self.x0_prep, w)
+        if l != 0:
+            h = self._scale_rows(h, self.n0_fp)
+        agg = self._aggregate(self.arr, h, dest_scale=True)
+        return agg, self.proto.matmul(self._gen, agg, w)
 
     def _predict_apply(self, arr: _PlanArrays, z_sh: torch.Tensor):
         """Prediction Apply (cognn_tpu/mpc/engine.py:1115-1125): reveal,
@@ -263,7 +304,6 @@ class MpcGasEngine:
         (cognn_tpu/mpc/engine.py:1176-1232); updates ``weights_sh`` and
         returns the forward's metrics."""
         L, proto, gen, arr = self.L, self.proto, self._gen, self.arr
-        lr = float(self.param.learning_rate)
         weights = list(self.weights_sh)
         h = None
         h_in: List[torch.Tensor] = [None] * L
@@ -306,12 +346,55 @@ class MpcGasEngine:
                     d = proto.matmul_prepped(gen, self.x0_prep_bwd, h)
                 else:
                     d = proto.matmul(gen, h_in[l].transpose(-1, -2), h)
-                # per-party gradient scale 1/train_n, SGD (gcn.h:667-678)
-                d = proto.scale_rows(gen, d,
-                                     self.inv_train_fp[:, None, None])
-                step = proto.scale_const(gen, d, lr)
-                weights[l] = self._weight_mean(proto.sub(weights[l], step))
+                weights[l] = self._sgd_step(weights[l], d)
                 h = g
+        self.weights_sh = weights
+        return metrics
+
+    def _sgd_step(self, w_sh: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """SGD on a layer's weight shares with the weight gradient ``d``:
+        the per-party scale 1/train_n and the learning rate, each with
+        truncation (gcn.h:667-678), then the weight mean."""
+        proto, gen = self.proto, self._gen
+        d = proto.scale_rows(gen, d, self.inv_train_fp[:, None, None])
+        step = proto.scale_const(gen, d, float(self.param.learning_rate))
+        return self._weight_mean(proto.sub(w_sh, step))
+
+    def _epoch_unopt(self) -> Dict[str, torch.Tensor]:
+        """One CoGNN (unopt) training epoch on shares, 2L phases
+        (cognn_tpu/mpc/engine.py:1234-1290); updates ``weights_sh`` and
+        returns the forward's metrics."""
+        L, proto, gen = self.L, self.proto, self._gen
+        weights = list(self.weights_sh)
+        h = self.x0_sh
+        ah: List[torch.Tensor] = [None] * L  # None for layer 0 hoisted
+        z_mask: List[torch.Tensor] = [None] * L
+        metrics = None
+
+        for l in range(L):
+            ah[l], z = self._unopt_layer(l, h, weights[l])
+            if l != L - 1:
+                z_mask[l] = proto.sign_mask(z)
+                h = proto.mask_mul(z, z_mask[l])
+            else:
+                h, metrics = self._predict_apply(self.arr, z)
+
+        for k, l in enumerate(reversed(range(L))):
+            if l != L - 1:
+                h = proto.mask_mul(h, z_mask[l])
+            # layer 0's delta @ W0^T (cognn_tpu/mpc/engine.py:1274) is never
+            # read. Under exact truncation no value depends on the random
+            # words it would have drawn.
+            if l != 0:
+                g = proto.matmul(gen, h, weights[l].transpose(-1, -2))
+            if ah[l] is None:
+                d = proto.matmul_prepped(gen, self.x0_prep_bwd, h)
+            else:
+                d = proto.matmul(gen, ah[l].transpose(-1, -2), h)
+            weights[l] = self._sgd_step(weights[l], d)
+            if l != 0:
+                h = self._aggregate(self.arr, self._scale_rows(g, self.n0_fp),
+                                    dest_scale=L + k + 2 != 2 * L)
         self.weights_sh = weights
         return metrics
 
@@ -319,7 +402,7 @@ class MpcGasEngine:
     def run_epoch(self) -> Dict[str, torch.Tensor]:
         """One secret-shared training epoch; returns its forward's
         per-party metrics (from the revealed prediction)."""
-        return self._epoch_opt()
+        return self._epoch_unopt() if self.unopt else self._epoch_opt()
 
     def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
         """``n`` epochs; returns the last one's metrics."""

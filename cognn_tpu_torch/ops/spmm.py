@@ -59,7 +59,8 @@ def launch_shape(d: int, elem_bytes: int, ptrs, share_elems=()) -> tuple:
     of ``ptrs``, the row pitch, and each share stride of ``share_elems``
     elements), else 1. ``lanes`` is the power of two, at most 32, that
     covers the row in loads of ``vec``. (The kernel gives a row 2 of these
-    groups side by side where they fit a warp, 1 at 32 lanes.)"""
+    groups side by side where they fit a warp, 1 at 32 lanes; a row wider
+    than 32 loads takes a block row for each chunk of 32 loads.)"""
     vec = 16 // elem_bytes
     steps = (*ptrs, d * elem_bytes, *(n * elem_bytes for n in share_elems))
     if any(x % 16 for x in steps):

@@ -8,18 +8,21 @@ Each variant is the shipped source with the edits of :data:`VARIANTS`
 ``cognn_tpu_torch/_build/variants/`` and launched through the wrappers
 (:class:`~cognn_tpu_torch.ops.spmm.Spmm` and its ``ring``, which pick the
 loads as always), with the variant's entry points in place of the shipped
-ones. Four variants are other designs: one entry slot a row, 8 entries a
-slot, 256 threads a block, and the entries handed out by coalesced loads
-and ``__shfl_sync``; each is held to the plain version before it is timed
-(f32 rtol/atol 1e-5, ring ``torch.equal``). Three remove a part of the
-kernel and compute something else, so they are only timed: no H gathers
-(each value made from its source index, which is still loaded), no index
-loads (each source hashed from the entry's position by a multiply and a
-high multiply, scattered over the rows, counts 1), and neither. Shapes: the flat CSR of synthetic Cora with
-2 parties and PubMed with 4 (the engines' aggregation) at D = 16 and the
-label width, f32 and ring, and the microbenchmark's graph at D = 16, f32.
-The variants of one shape run in turns, forward then backward, and each
-time printed is the mean of the two windows
+ones. Five variants are other designs: one entry slot a row, 8 entries a
+slot, 256 threads a block, a row's column chunks looped over in one group
+(one block row; the shipped build gives each chunk a block row), and the
+entries handed out by coalesced loads and ``__shfl_sync``; each is held to
+the plain version before it is timed (f32 rtol/atol 1e-5, ring
+``torch.equal``). Three remove a part of the kernel and compute something
+else, so they are only timed: no H gathers (each value made from its
+source index, which is still loaded), no index loads (each source hashed
+from the entry's position by a multiply and a high multiply, scattered over
+the rows, counts 1), and neither. Shapes: the flat CSR of synthetic Cora
+with 2 parties and PubMed with 4 (the engines' aggregation) at the input
+width (the unopt layer-0 aggregation), D = 16 and the label width, f32 and
+ring, and the microbenchmark's graph at D = 16, f32. The variants of one
+shape run in turns, forward then backward, and each time printed is the
+mean of the two windows
 (:func:`~cognn_tpu_torch.utils.timing.device_ms`, µs-scale calls queued
 behind a sleep kernel); the first line is the launch floor, a one-element
 ``zero_`` timed the same way. Raises without a card.
@@ -91,6 +94,10 @@ VARIANTS = {
     "1 slot": ((("kSlots = GC < 32 ? 2 : 1;", "kSlots = 1;"),), True),
     "8 entries a slot": ((("kBatch = 4;", "kBatch = 8;"),), True),
     "256 threads": ((("kThreads = 128;", "kThreads = 256;"),), True),
+    # a wide row's chunks looped over in one group, one block row
+    "chunks in one group": (((
+        "const int chunks = (d + GC * V - 1) / (GC * V);",
+        "const int chunks = 1;"),), True),
     "shuffle hand-out": (((_LOADS, _SHUFFLE),), True),
     "no H gathers": (((_GATHER, _NO_GATHER),), False),
     "no index loads": (((_LOADS, _NO_LOADS),), False),
@@ -165,7 +172,7 @@ def shapes(dev):
                                    ("pubmed_4p", "pubmed", 4)):
         plan, param = party_plan(dataset, parties)
         k = GasEngine(plan, param, "opt_inference", device=dev).spmm
-        cells.append((name, k, param.layer_dims[1:], (False, True)))
+        cells.append((name, k, param.layer_dims, (False, True)))
     cells.append(("bench", bench_spmm.setup(device=dev).spmm, (16,),
                   (False,)))
     for name, k, widths, kinds in cells:

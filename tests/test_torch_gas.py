@@ -108,8 +108,7 @@ def test_opt_variant_forward_and_later_slices():
                                torch_engine(2, "bcsr").forward()[0])
     metrics = eng.run_epoch()  # the training slice
     assert tuple(metrics["loss"].shape) == (2,)
-    for kw in (dict(variant="unopt"), dict(aggregation="dense"),
-               dict(mode="sharded")):
+    for kw in (dict(aggregation="dense"), dict(mode="sharded")):
         src, dst, feats, labels, param = data()
         plan = build_device_plan(
             build_torch_parties(src, dst, feats, labels, 2))

@@ -149,8 +149,7 @@ def test_backends_and_modes_agree():
 
 
 def test_later_slices_raise():
-    for kw in (dict(variant="unopt"), dict(variant="unopt_inference"),
-               dict(mode="sharded"), dict(aggregation="dense")):
+    for kw in (dict(mode="sharded"), dict(aggregation="dense")):
         with pytest.raises(NotImplementedError, match="slice"):
             torch_engine(2, **kw)
     # the training slice: both opt variants train, as in the JAX package
