@@ -170,6 +170,31 @@
    shares. Step 3's wrap check covers int32 too, and step 11 runs ``--mpc
    --ring-bits 32 --scaler-bits 8``.
 
+15. Holds the engines to the port's float64 oracle (``oracle_phase``,
+   each cell after its accuracy runs; ``cognn_tpu_torch/models/oracle.py``,
+   plain numpy on the host): CoGNN-Opt and CoGNN (unopt; secret-shared
+   hoisted), EPOCHS_CHECKED epochs from the same initial weights and one
+   forward; plaintext weights and logits within ORACLE_TOL_OF_MAX of the
+   oracle's largest, secret-shared within MPC_WEIGHTS_TOL and
+   MPC_LOGITS_TOL.
+16. Drives CiteSeer's 3,703-wide layer 0 (``citeseer_phase``, after the
+   cells): the counts set to 0 around a secret-shared opt epoch at 3
+   parties, a plaintext unopt epoch and a secret-shared unopt forward
+   without the hoist at 5, each checked; then K3 at the layer-0 forward and
+   weight-gradient shapes and the f32 and ring CSR kernels at D = 3703 held
+   and timed as in step 4, warm and cold (``[citeseer_3p]``,
+   ``[citeseer_5p unopt]`` on the kernels line). Step 11 also holds the
+   native graph reader to the numpy parse on the files it writes and runs
+   Cora 2p with ``-t 8``, its ``::graph_load`` beside the run without.
+17. Drives the port's evaluation-matrix driver after step 11
+   (``matrix_phase``): ``python -m cognn_tpu_torch.tools.run_cluster`` as
+   subprocesses on the card (MATRIX_RUNS: the smallest run plaintext and
+   secret-shared, FedGNN Cora 2p, secret-shared opt CiteSeer 3p, unopt
+   CiteSeer 5p), then ``cognn_tpu_torch.tools.summarize_matrix``: each
+   row's test accuracy within MATRIX_ACC_TOL of results/matrix/SUMMARY.md's
+   row, its bytes counted in gloo party processes and equal to the
+   closed form; us/iter printed beside the card.
+
 The line before the last is one JSON object with each kernel's numbers
 (the engines' kernels also with their ``training_launches`` and
 ``launches_per_epoch``); the
@@ -338,6 +363,19 @@ SSSP_HOST_RTOL = 1e-5  # f32 path sums against float64
 SS_PAGERANK_FRAC_BITS = 24
 SS_ANALYTICS_TOL = {"pagerank": 2e-3, "bfs": 1e-3, "sssp": 2e-3, "cc": 0.0}
 RING32_FRAC_BITS = 8  # the 32-bit ring's fractional bits (JAX's tests)
+# the engines against the float64 oracle after EPOCHS_CHECKED epochs, as a
+# share of the oracle's largest weight or logit (oracle_phase; plaintext
+# f32 sums against float64 ones)
+ORACLE_TOL_OF_MAX = 1e-4
+# the port's evaluation-matrix driver (matrix_phase): each run's arguments
+MATRIX_RUNS = (
+    ("--smallest-cognn-efficiency", "--fedgnn", "--parties", "2"),
+    ("--smallest-cognn-efficiency", "--mpc"),
+    ("--cognn-opt-accuracy", "--mpc", "--dataset", "citeseer", "--parties",
+     "3"),
+    ("--cognn-unopt-accuracy", "--dataset", "citeseer", "--parties", "5"),
+)
+MATRIX_ACC_TOL = 0.01  # a row's test accuracy against the JAX matrix's
 RING_MATMUL_JAX_PATH = ("ring_matmul_small_prepped (24 int8 MXU dots) "
                         "through Protocol.matmul / matmul_prepped, "
                         "cognn_tpu/mpc/protocol.py:129-174")
@@ -2180,6 +2218,36 @@ def sharded_cli_phase(tmp: Path, files, stacked: dict) -> None:
               if "joined cluster" in line), flush=True)
 
 
+def parse_check(sets) -> None:
+    """The native graph reader (``csrc/graph_io.cpp``, its thread pool on
+    auto) against the numpy parse on the edge and vertex files of each
+    dataset in ``sets`` (``cli_phase``'s): equal arrays and dtypes; prints
+    each one's time."""
+    from cognn_tpu_torch.config import GNNParam
+    from cognn_tpu_torch.graph import io, native_io
+
+    native_io.set_threads(0)
+    for name, (edges, verts, _, config) in sets.items():
+        dim = GNNParam.read_config(config).input_dim
+        for what, native, plain in (
+                ("edges", lambda: io.read_edge_list(edges),
+                 lambda: io.read_edge_list_numpy(edges)),
+                ("vertices", lambda: io.read_vertex_file(verts, dim),
+                 lambda: io.read_vertex_file_numpy(verts, dim))):
+            t0 = time.perf_counter()
+            got = native()
+            t1 = time.perf_counter()
+            want = plain()
+            t2 = time.perf_counter()
+            if not all(g.dtype == w.dtype and np.array_equal(g, w)
+                       for g, w in zip(got, want)):
+                raise AssertionError(f"cli parse {name} {what}: the native "
+                                     "reader differs from numpy's")
+            print(f"cli parse {name} {what}: native == numpy "
+                  f"({len(got[0])} rows); native {t1 - t0!r} s, numpy "
+                  f"{t2 - t1!r} s", flush=True)
+
+
 def run_cli(label: str, args, cwd: Path) -> dict:
     """One ``python -m cognn_tpu_torch.harness.run_party`` run on the card:
     rc 0 and the reference's lines, or it raises. Returns its stdout, its
@@ -2297,6 +2365,7 @@ def cli_phase() -> None:
                           d / f"{name}_config.txt"]
         print(f"cli: wrote synthetic cora and pubmed in "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        parse_check(sets)
 
         def files(name, out):
             *inputs, config = sets[name]
@@ -2327,6 +2396,8 @@ def cli_phase() -> None:
             ("mpc ring32", "cora", 2, ["-m", "60", "--mpc", "--ring-bits",
                                        "32", "--scaler-bits",
                                        str(RING32_FRAC_BITS)], "opt", True,
+             "auto", 10),
+            ("opt t8", "cora", 2, ["-m", "60", "-t", "8"], "opt", False,
              "auto", 10),
         ]
         graphs, out = {}, {}
@@ -2365,6 +2436,9 @@ def cli_phase() -> None:
                     and not losses[-1] < losses[0]:
                 raise AssertionError(f"cli {label}: loss {losses[0]} -> "
                                      f"{losses[-1]}")
+        print(f"cli -t 8: ::graph_load {out['opt t8']['spans']['graph_load']}"
+              f" s; without -t {out['opt']['spans']['graph_load']} s (Cora "
+              f"2p, the native parser's threads)", flush=True)
         ckpt_args = next(run[3] for run in runs if run[0] == "checkpoint")
         resumed = run_cli("checkpoint -n", ["-g", 2, *ckpt_args, "-n"]
                           + files("cora", "resumed.txt"), tmp)
@@ -2706,6 +2780,265 @@ def ring32_phase(cell: str, plan, param, spmm, dup, mac_ms: float,
             "counts": counts, "epoch_counts": e_counts,
             "shapes": fwd_shapes, "train_shapes": train}
 
+def cell_graphs(dataset: str, parties: int):
+    """The parties' graphs of a cell as ``party_plan`` builds them
+    (synthetic ``dataset``, vertex v to party v mod ``parties``), and its
+    :class:`GNNParam`: the float64 oracle reads graphs, not plans."""
+    from cognn_tpu_torch.harness.datasets import synthetic_planetoid
+    from cognn_tpu_torch.tools.run_cluster import build_graphs
+
+    ds = synthetic_planetoid(dataset)
+    return build_graphs(ds, parties), ds.param
+
+
+def oracle_phase(cell: str, dataset: str, parties: int) -> None:
+    """The engines against the port's float64 ``GasOracle``
+    (``cognn_tpu_torch/models/oracle.py``, plain numpy on the host) at the
+    cell's full width: CoGNN-Opt and CoGNN (unopt), EPOCHS_CHECKED epochs
+    from the same initial weights, then one forward (the oracle: the next
+    epoch's L forward phases). Plaintext (the CSR kernel under ``auto``)
+    logits and weights within ORACLE_TOL_OF_MAX of the oracle's largest;
+    secret-shared (unopt hoisted) logits within MPC_LOGITS_TOL and weights
+    within MPC_WEIGHTS_TOL of it. Prints each distance and the oracle's
+    time."""
+    from cognn_tpu_torch.engine import GasEngine, build_device_plan
+    from cognn_tpu_torch.models.oracle import GasOracle
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    graphs, param = cell_graphs(dataset, parties)
+    plan = build_device_plan(graphs)
+    L = param.num_layers
+    for variant in ("opt", "unopt"):
+        t0 = time.perf_counter()
+        orc = GasOracle(graphs, param, variant)
+        orc.run_epochs(EPOCHS_CHECKED)
+        w_or = [np.stack([p.weights[l] for p in orc.parties])
+                for l in range(L)]
+        orc.run(L)
+        z_or = [p.z[L - 1] for p in orc.parties]
+        s = time.perf_counter() - t0
+        for mpc in (False, True):
+            label = f"oracle {cell} {variant}" + " mpc" * mpc
+            engine = (MpcGasEngine if mpc else GasEngine)(
+                plan, param, variant, device="cuda")
+            engine.run_epochs(EPOCHS_CHECKED)
+            w = [x.double().cpu().numpy() for x in weights_of(engine)]
+            z = engine.forward()[0].double().cpu().numpy()
+            w_err = max(float(np.abs(a - b).max()) for a, b in zip(w, w_or))
+            z_err = max(float(np.abs(z[p, :len(want)] - want).max())
+                        for p, want in enumerate(z_or))
+            if mpc:
+                w_tol, z_tol = MPC_WEIGHTS_TOL, MPC_LOGITS_TOL
+            else:
+                w_tol = ORACLE_TOL_OF_MAX * max(float(np.abs(b).max())
+                                                for b in w_or)
+                z_tol = ORACLE_TOL_OF_MAX * max(float(np.abs(b).max())
+                                                for b in z_or)
+            if not (w_err <= w_tol and z_err <= z_tol):
+                raise AssertionError(
+                    f"{label}: weights {w_err!r} (tol {w_tol!r}), logits "
+                    f"{z_err!r} (tol {z_tol!r}) from the float64 oracle")
+            print(f"{label}: {EPOCHS_CHECKED} epochs and a forward of "
+                  f"{engine.aggregation}; max|W - W_oracle|={w_err!r} (tol "
+                  f"{w_tol!r}), max|z - z_oracle|={z_err!r} (tol "
+                  f"{z_tol!r}); oracle {s!r} s on the host", flush=True)
+
+
+def citeseer_phase(mac_ms: float) -> list:
+    """CiteSeer's 3,703-wide layer 0, which the matrix's CiteSeer rows run
+    and no cell above does. The counts set to 0 just before and read just
+    after: one secret-shared CoGNN-Opt epoch at 3 parties (K3 at the
+    forward's ``[3, V, 3703] @ [3, 3703, 16]`` and the weight gradient's
+    ``[3, 3703, V] @ [3, V, 16]``, 5 launches), one plaintext unopt epoch at
+    5 parties (the f32 CSR kernel at D = 3703, 3 launches) and one
+    secret-shared unopt forward at 5 parties without the hoist (the ring
+    CSR kernel at D = 3703, 2 launches); each checked as
+    :func:`launch_counts` says and its metrics finite. Then K3 at those two
+    shapes (full-range operands, ``torch.equal``, warm and cold L2) and both
+    CSR kernels at D = 3703 (f32 ``torch.equal`` on integer-valued rows and
+    within KERNEL_TOL on normal rows, ring ``torch.equal``, warm and cold)
+    held to their plain versions and timed beside the library calls.
+    Returns the kernels line's entries."""
+    from cognn_tpu_torch.core.ring import ring_from_u64
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.harness.datasets import party_plan
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    plan3, param = party_plan("citeseer", 3)
+    plan5, _ = party_plan("citeseer", 5)
+    F = param.input_dim
+    mpc3 = MpcGasEngine(plan3, param, "opt", device="cuda")
+    plain5 = GasEngine(plan5, param, "unopt", device="cuda")
+    mpc5 = MpcGasEngine(plan5, param, "unopt_inference", hoist_agg=False,
+                        device="cuda")
+    spmms = (mpc3.spmm, plain5.spmm, mpc5.spmm)
+    runs = ((mpc3, mpc3.run_epoch, epoch_counts(mpc3)),
+            (plain5, plain5.run_epoch, epoch_counts(plain5)),
+            (mpc5, lambda: mpc5.forward()[2], forward_counts(mpc5)))
+    launched = {}
+    for engine, run, want in runs:
+        reset_counts(spmms)
+        metrics = run()
+        torch.cuda.synchronize()
+        got = read_counts(spmms)
+        if got != want:
+            raise AssertionError(f"citeseer {engine.variant} "
+                                 f"{engine.aggregation}: launches {got}, "
+                                 f"want {want}")
+        check_metrics(f"citeseer {engine.variant}", engine, metrics)
+        launched[engine.variant] = got
+    print(f"citeseer: launches {launched} (3p opt epoch mpc, 5p unopt epoch "
+          f"plaintext, 5p unopt forward mpc not hoisted)", flush=True)
+    V3 = plan3.V
+    k3_shapes = [(3, V3, F, param.hidden_dim), (3, F, V3, param.hidden_dim)]
+    k3 = ring_matmul_phase("citeseer_3p", k3_shapes)
+    spmm = plain5.spmm
+    dup = with_repeats(spmm)
+    integer_rows_check("citeseer_5p", spmm, dup, F)
+    f32 = kernel_phase("citeseer_5p", spmm, dup, (F,))
+    ring = ring_spmm_phase("citeseer_5p", spmm, dup, (F,), mac_ms)
+    rng = np.random.default_rng(13)
+    h = torch.from_numpy(rng.standard_normal((spmm.n_src, F),
+                                             dtype=np.float32)).cuda()
+    hs = ring_from_u64(rng.integers(0, 1 << 64, (2, spmm.n_src, F),
+                                    dtype=np.uint64), device="cuda")
+    f32["cold_ms"] = cold_ms(lambda: spmm(h))
+    ring["cold_ms"] = cold_ms(lambda: spmm.ring(hs))
+    print(f"citeseer_5p D={F} cold L2: f32 kernel_ms={f32['cold_ms']!r}, "
+          f"ring kernel_ms={ring['cold_ms']!r}", flush=True)
+    csr = f"n={spmm.n_dst}, nnz={spmm.nnz}"
+    return [{
+        "name": "ring_matmul_i64[citeseer_3p]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/ring_matmul.cu",
+        "replaces": RING_MATMUL_REPLACES,
+        "jax_path": RING_MATMUL_JAX_PATH,
+        "launches": launched["opt"]["ring_matmul_i64"],
+        "shape": "CiteSeer 3p layer 0, forward and weight gradient, 2 of an "
+                 "epoch's 5 launches (launches: one epoch's): " + ", ".join(
+                     f"[{b},{n},{k}]@[{b},{k},{m}]"
+                     for b, n, k, m in k3_shapes),
+        **k3,
+    }, {
+        "name": "spmm_csr_f32[citeseer_5p unopt]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/spmm.cu",
+        "replaces": "cognn_tpu/ops/pallas_spmm.py:27",
+        "jax_path": "K2 under aggregation='bcsr' (26^2 < 1024 blocks); "
+                    "unopt: layer 0 at the input width",
+        "launches": launched["unopt"]["spmm_csr_f32"],
+        "shape": f"CiteSeer 5p unopt layer 0: D = {F}, {csr}, 1 of an "
+                 f"epoch's 3 launches (launches: one epoch's)",
+        **f32,
+    }, {
+        "name": "spmm_csr_i64[citeseer_5p unopt]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/spmm.cu",
+        "replaces": "cognn_tpu/ops/pallas_spmm.py:27",
+        "jax_path": "share instantiation (_bcsr_agg_shares, "
+                    "cognn_tpu/mpc/engine.py:269); unopt layer 0",
+        "launches": launched["unopt_inference"]["spmm_csr_i64"],
+        "shape": f"CiteSeer 5p secret-shared unopt layer 0 without the "
+                 f"hoist: 2 shares, D = {F}, {csr}, 1 of a forward's 2 "
+                 f"launches (launches: one forward's)",
+        **ring,
+    }]
+
+
+def matrix_rows(path: Path) -> dict:
+    """{(setting, dataset): {column: value}} of a summary table."""
+    rows = {}
+    lines = path.read_text().splitlines()
+    head = next(i for i, line in enumerate(lines)
+                if line.startswith("| setting |"))
+    cols = [c.strip() for c in lines[head].strip("|").split("|")]
+    for line in lines[head + 2:]:
+        if line.startswith("|"):
+            cells = dict(zip(cols, (c.strip()
+                                    for c in line.strip("|").split("|"))))
+            rows[cells["setting"], cells["dataset"]] = cells
+    return rows
+
+
+def matrix_phase() -> None:
+    """The port's evaluation-matrix driver, ``python -m
+    cognn_tpu_torch.tools.run_cluster``, as subprocesses on the card in a
+    temporary directory (MATRIX_RUNS), then its summarizer. Every row's
+    test accuracy within MATRIX_ACC_TOL of the same row of
+    results/matrix/SUMMARY.md (the JAX package's run, read as data; the
+    secret-shared smallest run, which has no row there, against the
+    plaintext ``smallest_efficiency`` row); every party's ``.comm`` counted
+    (``"measured": true``) and equal to the closed-form bytes. Prints both
+    accuracies, the loss and us/iter beside the card."""
+    import tempfile
+
+    from cognn_tpu_torch.tools import summarize_matrix
+    from cognn_tpu_torch.tools.log_parse import parse_comm_file
+
+    tpu = matrix_rows(ROOT / "results" / "matrix" / "SUMMARY.md")
+    card = card_line()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        env = {**os.environ, "PYTHONPATH": str(ROOT)}
+        for args in MATRIX_RUNS:
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "cognn_tpu_torch.tools.run_cluster",
+                 *args], cwd=tmp, env=env, capture_output=True, text=True,
+                timeout=900)
+            if r.returncode != 0:
+                raise AssertionError(f"run_cluster {args}: rc "
+                                     f"{r.returncode}\n{r.stdout[-2000:]}\n"
+                                     f"{r.stderr[-4000:]}")
+            for line in r.stdout.splitlines():
+                print(f"run_cluster: {line}", flush=True)
+            print(f"run_cluster {' '.join(args)}: "
+                  f"{time.perf_counter() - t0:.1f} s", flush=True)
+        out = tmp / "SUMMARY.md"
+        summarize_matrix.main(["--log-root", str(tmp / "log"), "--comm-root",
+                               str(tmp / "comm"), "--out", str(out),
+                               "--device", card])
+        rows = matrix_rows(out)
+        want = {("smallest_efficiency", "cora"), ("mpc_smallest_efficiency",
+                                                   "cora"),
+                ("fedgnn_2p", "cora"), ("mpc_opt_accuracy_3p", "citeseer"),
+                ("unopt_accuracy_5p", "citeseer")}
+        if set(rows) != want:
+            raise AssertionError(f"matrix: rows {sorted(rows)}, want "
+                                 f"{sorted(want)}")
+        for (setting, ds), row in sorted(rows.items()):
+            ref_key = (("smallest_efficiency", ds)
+                       if setting == "mpc_smallest_efficiency"
+                       else (setting, ds))
+            ref = tpu[ref_key]
+            diff = float(row["test acc"]) - float(ref["test acc"])
+            files = sorted((tmp / "comm" / setting).glob(f"{ds}_*.comm"))
+            if len(files) != int(row["P"]):
+                raise AssertionError(f"matrix {setting} {ds}: {len(files)} "
+                                     f".comm files for {row['P']} parties")
+            for f in files:
+                c = parse_comm_file(f)
+                if not (c["measured"] and c["per_epoch_bytes"]
+                        == c["analytic_per_epoch_bytes"]):
+                    raise AssertionError(
+                        f"matrix {setting} {ds} {f.name}: measured "
+                        f"{c['measured']}, bytes {c['per_epoch_bytes']}, "
+                        f"analytic {c['analytic_per_epoch_bytes']}")
+            print(f"matrix {setting} {ds}: P={row['P']} test acc "
+                  f"{row['test acc']} (results/matrix/SUMMARY.md "
+                  f"{' '.join(ref_key)}: {ref['test acc']}, {diff:+.4f}); "
+                  f"loss {row['loss']} ({ref['loss']}); us/iter "
+                  f"{row['us/iter']} over {row['iters']} iterations; "
+                  f"MB/party {row['MB/party']} counted == analytic "
+                  f"({row['sharded backend']}); rounds/epoch "
+                  f"{row['rounds/epoch']}; {card}", flush=True)
+            if not abs(diff) <= MATRIX_ACC_TOL:
+                raise AssertionError(f"matrix {setting} {ds}: test acc "
+                                     f"{row['test acc']}, matrix "
+                                     f"{ref['test acc']}, more than "
+                                     f"{MATRIX_ACC_TOL} apart")
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs "
@@ -2729,12 +3062,13 @@ def main(argv) -> None:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:  # one nvcc each
-        logs = dict(zip(_build.SOURCES, pool.map(_build.build,
-                                                 _build.SOURCES)))
+    sources = _build.SOURCES + _build.HOST_SOURCES
+    with ThreadPoolExecutor(len(sources)) as pool:  # one compiler each
+        logs = dict(zip(sources, pool.map(_build.build, sources)))
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        print(f"nvcc {name}: " + " | ".join(log.split("\n")), flush=True)
+        tool = "g++" if name in _build.HOST_SOURCES else "nvcc"
+        print(f"{tool} {name}: " + " | ".join(log.split("\n")), flush=True)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock = max_sm_clock_hz()
     int_rate = IMAD_PER_CLOCK_PER_SM * sms * clock
@@ -2819,6 +3153,7 @@ def main(argv) -> None:
         unopt_fwd = unopt_forward_phase(cell, plan, param, spmms)
         unopt_train = unopt_train_phase(cell, plan, param, spmms, n_edges)
         accuracy_phase(cell, plan, param, "unopt")
+        oracle_phase(cell, dataset, parties)
         dense = (dense_phase(cell, plan, param, engine.spmm, mpc.spmm, spmms,
                              n_edges) if cell == DENSE_CELL else None)
         an = analytics_phase(cell, dataset, parties, mac_ms)
@@ -3038,11 +3373,14 @@ def main(argv) -> None:
                 **dense["k3"],
             })
 
+    kernels += citeseer_phase(mac_ms)
+
     # the sharded mode: one process a party
     for cell, dataset, parties, replaces, _ in CELLS:
         kernels += sharded_phase(cell, dataset, parties, replaces, mac_ms)
 
     cli_phase()
+    matrix_phase()
 
     case, bench_counts = bench_phase()
     full_tile_check()

@@ -1,5 +1,5 @@
 """Graph file IO in the reference's text formats (port of
-``cognn_tpu/graph/io.py``, its numpy path).
+``cognn_tpu/graph/io.py``).
 
 Formats (reference `include/graph_io_util.h:41-208`, `tools/data_transform.py`):
 
@@ -7,9 +7,13 @@ Formats (reference `include/graph_io_util.h:41-208`, `tools/data_transform.py`):
   * vertex list — ``<vid> <f_0> ... <f_{D-1}> <label>`` per line
   * partition   — ``<vid> <tid>`` per line (tab or space separated)
 
-The JAX package parses edge lists with an optional C++ library (``native/``)
-and falls back to numpy where it is not built; the port reads with numpy
-only, which returns the same arrays.
+:func:`read_edge_list` and :func:`read_vertex_file` parse with the native
+C++ library (:mod:`cognn_tpu_torch.graph.native_io`, ``csrc/graph_io.cpp``,
+built at first use; ``-t`` sizes its thread pool). The JAX package falls back
+to numpy where its library is not built; the port raises instead. The numpy
+parse stays as :func:`read_edge_list_numpy` and :func:`read_vertex_file_numpy`,
+which return the same arrays: the plain versions the tests hold the native
+reader to.
 """
 
 from __future__ import annotations
@@ -18,6 +22,8 @@ from pathlib import Path
 from typing import Tuple
 
 import numpy as np
+
+from cognn_tpu_torch.graph import native_io
 
 
 def _effective_lines(path: Path):
@@ -28,11 +34,26 @@ def _effective_lines(path: Path):
                 yield line
 
 
+def _undirected(src, dst, w, undirected: bool):
+    if undirected:
+        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
+        w = np.concatenate([w, w])
+    return src, dst, w
+
+
 def read_edge_list(path: str | Path, default_weight: float = 1.0,
                    undirected: bool = False
                    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (src[E], dst[E], weight[E]). ``undirected`` appends reverses
-    (reference `graph_io_util.h:159-163`)."""
+    """Returns (src[E], dst[E], weight[E]), parsed natively. ``undirected``
+    appends reverses (reference `graph_io_util.h:159-163`)."""
+    return _undirected(*native_io.parse_edge_list(path, default_weight),
+                       undirected)
+
+
+def read_edge_list_numpy(path: str | Path, default_weight: float = 1.0,
+                         undirected: bool = False
+                         ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`read_edge_list` by ``np.loadtxt``, its plain version."""
     rows = np.loadtxt(path, dtype=np.float64, comments="#", ndmin=2)
     if rows.size == 0:
         src = dst = np.zeros(0, np.int64)
@@ -42,16 +63,19 @@ def read_edge_list(path: str | Path, default_weight: float = 1.0,
         dst = rows[:, 1].astype(np.int64)
         w = (rows[:, 2] if rows.shape[1] > 2
              else np.full(len(src), default_weight))
-    if undirected:
-        src, dst = np.concatenate([src, dst]), np.concatenate([dst, src])
-        w = np.concatenate([w, w])
-    return src, dst, w
+    return _undirected(src, dst, w, undirected)
 
 
 def read_vertex_file(path: str | Path, input_dim: int
                      ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Returns (vid[V], features[V, input_dim], label[V])
+    """Returns (vid[V], features[V, input_dim], label[V]), parsed natively
     (reference `harness.cpp:21-48` loadVertexData)."""
+    return native_io.parse_vertex_file(path, input_dim)
+
+
+def read_vertex_file_numpy(path: str | Path, input_dim: int
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`read_vertex_file` by ``np.loadtxt``, its plain version."""
     rows = np.loadtxt(path, dtype=np.float64, comments="#", ndmin=2)
     if rows.shape[1] != input_dim + 2:
         raise ValueError(

@@ -32,8 +32,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="collaborative GNN training/inference on PyTorch and "
                     "CUDA (CoGNN capability rebuild)")
     p.add_argument("-t", "--threads", type=int, default=0,
-                   help="accepted for parity with the JAX package's native "
-                        "graph loader; no effect in the port's numpy reader")
+                   help="threads of the native graph file parser "
+                        "(0 = auto: one below 4096 rows, else the host's "
+                        "cores up to 16)")
     p.add_argument("-g", "--tiles", type=int, default=2,
                    help="number of parties/graph tiles")
     p.add_argument("-i", "--tile-index", type=int, default=0,

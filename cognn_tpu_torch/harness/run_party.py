@@ -64,8 +64,9 @@ from cognn_tpu_torch.config import GNNParam, RunConfig
 from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
 from cognn_tpu_torch.core.ring import RingSpec
 from cognn_tpu_torch.engine import GasEngine, build_device_plan
-from cognn_tpu_torch.graph import (build_party_graph, read_edge_list,
-                                   read_partition_file, read_vertex_file)
+from cognn_tpu_torch.graph import (build_party_graph, native_io,
+                                   read_edge_list, read_partition_file,
+                                   read_vertex_file)
 from cognn_tpu_torch.harness.checkpoint import save, try_restore
 from cognn_tpu_torch.harness.cli import build_parser, to_run_config
 from cognn_tpu_torch.mpc import MpcGasEngine
@@ -80,7 +81,10 @@ PACKAGE_ROOT = Path(__file__).resolve().parents[2]
 
 def load_party_graphs(cfg: RunConfig, param: GNNParam, device=None):
     """The parties' graphs from the run's edge, vertex and partition files
-    (the ``::graph_load`` span)."""
+    (the ``::graph_load`` span); ``-t`` > 0 caps the native parser's
+    threads."""
+    if cfg.threads > 0:
+        native_io.set_threads(cfg.threads)
     with duration_span("graph_load", device=device):
         src, dst, w = read_edge_list(cfg.edge_file,
                                      undirected=cfg.undirected)

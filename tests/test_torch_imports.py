@@ -111,4 +111,41 @@ def test_party_processes_raise_without_card(tmp_path):
 
 def test_scan_covers_every_subpackage():
     scanned = {p.parent.name for p in PORT_FILES}
-    assert {"core", "mpc", "ops", "engine", "tools", "utils"} <= scanned
+    assert {"core", "mpc", "ops", "engine", "tools", "utils", "models",
+            "graph", "harness"} <= scanned
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"cognn_tpu_torch/models/oracle.py",
+            "cognn_tpu_torch/graph/native_io.py",
+            "cognn_tpu_torch/tools/run_cluster.py",
+            "cognn_tpu_torch/tools/log_parse.py",
+            "cognn_tpu_torch/tools/summarize_matrix.py",
+            "cognn_tpu_torch/tools/golden_runs.py"} <= names
+
+
+def test_oracle_imports_no_torch():
+    """The float64 oracle is a host reference: importing it loads neither
+    torch nor JAX."""
+    code = ("import sys\n"
+            "import cognn_tpu_torch.models.oracle\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in"
+            " ('torch', 'jax', 'jaxlib', 'cognn_tpu')]\n"
+            "print(bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_new_entry_points_raise_without_card(tmp_path):
+    """The matrix driver and the golden runs default to the card and raise
+    without one, before any work."""
+    from cognn_tpu_torch.tools import golden_runs, run_cluster
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_cluster.main(["--smallest-cognn-efficiency", "--log-root",
+                          str(tmp_path / "log")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        golden_runs.main(["--out", str(tmp_path / "g.json")])
+    assert not (tmp_path / "log").exists()
