@@ -194,6 +194,20 @@
    row's test accuracy within MATRIX_ACC_TOL of results/matrix/SUMMARY.md's
    row, its bytes counted in gloo party processes and equal to the
    closed form; us/iter printed beside the card.
+18. Drives the experiment tools and the examples after step 17
+   (``tools_phase``): ``cognn_tpu_torch.tools.profile_epoch`` on each
+   PROFILE_CELLS cell, secret-shared opt (``profile_tool_phase``: the
+   counts set to 0 just before PROFILE_REPS traced ``run_epochs_scan(
+   PROFILE_SCAN)`` calls and read just after; every CSR SpMM and K3
+   launch of the trace attributed to ``oga`` / ``matmul``, as many as the
+   wrappers counted; the buckets summing to every device event of the
+   trace, nothing unlinked; the phase table, the reference tags and the
+   ``<other:...>`` share printed, the breakdown log read back by
+   ``tools/log_parse.py``); ``network_model`` on Cora 2p --mpc (opt, unopt;
+   the bytes and rounds counted in gloo party processes equal the closed
+   form; the grids printed); ``bench_scaling`` on PubMed at 1 and 2
+   parties sharing this card over gloo (its NOTE), its JSON printed; the
+   three examples at EXAMPLE_EPOCHS epochs.
 
 The line before the last is one JSON object with each kernel's numbers
 (the engines' kernels also with their ``training_launches`` and
@@ -208,6 +222,7 @@ import os
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -379,6 +394,20 @@ MATRIX_ACC_TOL = 0.01  # a row's test accuracy against the JAX matrix's
 RING_MATMUL_JAX_PATH = ("ring_matmul_small_prepped (24 int8 MXU dots) "
                         "through Protocol.matmul / matmul_prepped, "
                         "cognn_tpu/mpc/protocol.py:129-174")
+# the experiment tools (tools_phase): the per-phase breakdown's cells and
+# window (run_epochs_scan(PROFILE_SCAN) PROFILE_REPS times, traced), each
+# on-path kernel and the bucket all its launches must land in
+PROFILE_CELLS = (("cora_2p", "cora", 2), ("pubmed_4p", "pubmed", 4))
+PROFILE_SCAN, PROFILE_REPS = 8, 2
+# traced windows a cell may take: CUPTI on the card now and then loses
+# device records (a window whose trace holds launches without their kernel
+# is traced again; the attribution checks run on the first whole one)
+PROFILE_ATTEMPTS = 3
+PROFILE_KERNELS = (("csr_gather_sum", "oga", "spmm_csr_i64"),
+                   ("ring_matmul_u8_mma", "matmul", "ring_matmul_i64"))
+SCALING_ARGS = ("--dataset", "pubmed", "--parties", "1", "2", "--epochs",
+                "5")
+EXAMPLE_EPOCHS = 10
 
 
 def card_line() -> str:
@@ -3039,6 +3068,190 @@ def matrix_phase() -> None:
                                      f"{MATRIX_ACC_TOL} apart")
 
 
+def run_tool(label: str, main, argv) -> str:
+    """``main(argv)`` of a tool or example in this process, its standard
+    output captured, printed with ``label`` before each line, and
+    returned. Raises unless it returns 0."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(list(argv))
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"{label}: {line}", flush=True)
+    print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if rc != 0:
+        raise AssertionError(f"{label}: exit code {rc}")
+    return out
+
+
+def profile_tool_phase(cell: str, dataset: str, parties: int,
+                       outdir: Path) -> None:
+    """``cognn_tpu_torch.tools.profile_epoch`` on one cell, secret-shared
+    opt: its engine warm, one untraced scan timed, every count set to 0
+    just before the traced window and read just after, the trace parsed
+    with ``kernel`` leaves (a window in which the profiler lost records,
+    a launch without its device event or a device event without its
+    launch, is traced again, at most PROFILE_ATTEMPTS windows). Every
+    launch of each on-path kernel must be attributed to its bucket
+    (PROFILE_KERNELS), as many as its wrapper counted; the buckets must
+    sum to every device event's time in the trace; nothing may be
+    unlinked. Prints the tool's table and reference
+    tags, the ``<other:...>`` share, and reads the breakdown log back
+    with the port's ``tools/log_parse.py``."""
+    from cognn_tpu_torch.tools import profile_epoch as pe
+    from cognn_tpu_torch.tools.log_parse import parse_party_log
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    _, eng = pe.build_engine(dataset, parties, "auto", "opt", dev)
+    eng.run_epochs_scan(PROFILE_SCAN)
+    torch.cuda.synchronize()
+    untraced_us = pe.untraced_epoch_s(eng, PROFILE_SCAN, dev) * 1e6
+    path = outdir / f"{cell}.trace.json.gz"
+    n_epochs = PROFILE_SCAN * PROFILE_REPS
+    label = f"tools profile_epoch {cell}"
+    for attempt in range(1, PROFILE_ATTEMPTS + 1):
+        wall = pe.trace_epochs(eng, PROFILE_SCAN, PROFILE_REPS, path, dev,
+                               on_start=lambda: reset_counts([eng.spmm]))
+        counts = read_counts([eng.spmm])
+        trace = pe.load_trace(path)
+        result = pe.parse_trace(trace, "kernel",
+                                plane=f"{card_line()} (cuda:0)")
+        unlinked = sum(n for (b, _), n in result.kernels.items()
+                       if b == pe.UNLINKED)
+        if result.lost == 0 and unlinked == 0:
+            break
+        print(f"{label}: window {attempt}: {result.lost} launches without "
+              f"their device event, {unlinked} device events without their "
+              "launch (records lost by the profiler)", flush=True)
+    else:
+        raise AssertionError(f"{label}: the profiler lost device records in "
+                             f"all {PROFILE_ATTEMPTS} windows")
+    device_ps = sum(round(e["dur"] * 1e6) for e in trace["traceEvents"]
+                    if e.get("cat") in pe.DEVICE_CATS)
+    if not (sum(result.by_scope.values()) == result.total == device_ps
+            and device_ps > 0):
+        raise AssertionError(f"{label}: buckets sum to "
+                             f"{sum(result.by_scope.values())} ps, total "
+                             f"{result.total}, trace {device_ps}")
+    if result.by_scope.get(pe.UNLINKED, 0) != 0:
+        raise AssertionError(f"{label}: {result.by_scope[pe.UNLINKED]} ps "
+                             "of device time without a launch")
+    for pattern, bucket, counter in PROFILE_KERNELS:
+        found = Counter()
+        for (b, name), n in result.kernels.items():
+            if pattern in name:
+                found[b] += n
+        if set(found) != {bucket} or found[bucket] != counts[counter]:
+            raise AssertionError(f"{label}: {pattern} kernels by bucket "
+                                 f"{dict(found)}, want all "
+                                 f"{counts[counter]} ({counter}) in "
+                                 f"{bucket}")
+        print(f"{label}: {found[bucket]} {pattern} launches in {bucket} "
+              f"== {counter} {counts[counter]} over {n_epochs} epochs",
+              flush=True)
+    for (b, name), n in sorted(result.kernels.items()):
+        if b in ("matmul", "oga") or b.startswith("<other"):
+            print(f"{label}:   {b} x{n} {name[:100]}", flush=True)
+    log_file = outdir / f"{cell}.breakdown"
+    pe.report(result.plane, result.by_scope, result.total, n_epochs,
+              str(log_file))
+    read = parse_party_log(log_file)["durations"]
+    for tag, scopes in pe.REF_TAGS.items():
+        want = sum(result.by_scope.get(b, 0) for b in scopes) / 1e12 / n_epochs
+        if len(read[tag]) != 1 or abs(read[tag][0] - want) > 5e-7:
+            raise AssertionError(f"{label}: ::{tag} read back {read[tag]}, "
+                                 f"want {want!r}")
+    other = sum(v for k, v in result.by_scope.items()
+                if k.startswith("<other"))
+    per_epoch_us = result.total / 1e6 / n_epochs
+    print(f"{label}: device {per_epoch_us!r} us an epoch, <other:...> "
+          f"share {other / result.total!r}; untraced wall "
+          f"{untraced_us!r} us an epoch, traced wall (incl. profiler) "
+          f"{wall / n_epochs * 1e6!r}; breakdown log read back by "
+          f"log_parse; {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def tools_phase() -> None:
+    """The experiment tools on the card: the per-phase breakdown on each
+    PROFILE_CELLS cell (``profile_tool_phase``); ``network_model`` on Cora
+    2p --mpc, opt and unopt, its bytes and rounds counted in gloo party
+    processes and equal to the closed form, the grid printed;
+    ``bench_scaling`` (SCALING_ARGS; the parties share this card over
+    gloo, with its NOTE), its JSON held to epoch_layers x E / epoch_s; the
+    three examples (EXAMPLE_EPOCHS epochs), their final metrics printed
+    and the secret-shared one's loss within MPC_LOGITS_TOL of plaintext."""
+    import tempfile
+
+    from cognn_tpu_torch.engine import build_device_plan
+    from cognn_tpu_torch.engine.comm_model import (analytic_bytes_per_epoch,
+                                                   analytic_rounds_per_epoch)
+    from cognn_tpu_torch.examples import (analytics, train_plaintext,
+                                          train_secret_shared)
+    from cognn_tpu_torch.harness.datasets import synthetic_planetoid
+    from cognn_tpu_torch.tools import bench_scaling, network_model
+    from cognn_tpu_torch.tools.run_cluster import build_graphs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        for cell, dataset, parties in PROFILE_CELLS:
+            profile_tool_phase(cell, dataset, parties, tmp)
+
+        out = tmp / "network.json"
+        text = run_tool("tools network_model", network_model.main, [
+            "--dataset", "cora", "--parties", "2", "--mpc", "--variants",
+            "opt,unopt", "--json", str(out)])
+        grids = json.loads(out.read_text())["grids"]
+        ds = synthetic_planetoid("cora")
+        plan = build_device_plan(build_graphs(ds, 2))
+        for variant in ("opt", "unopt"):
+            g = grids[variant]
+            want = (analytic_bytes_per_epoch(plan, ds.param, variant,
+                                             mpc=True,
+                                             aggregation=g["backend"]),
+                    analytic_rounds_per_epoch(ds.param, variant, mpc=True))
+            if (g["bytes_per_epoch"], g["rounds_per_epoch"]) != want:
+                raise AssertionError(f"network_model {variant}: "
+                                     f"{g['bytes_per_epoch']} "
+                                     f"{g['rounds_per_epoch']}, analytic "
+                                     f"{want}")
+        if text.count("comm counted in 2 gloo party processes") != 2:
+            raise AssertionError("network_model: bytes not counted")
+        print("tools network_model: counted bytes and rounds == "
+              "analytic_bytes_per_epoch / analytic_rounds_per_epoch "
+              f"(opt, unopt); compute {grids['opt']['compute_src']}",
+              flush=True)
+
+    text = run_tool("tools bench_scaling", bench_scaling.main, SCALING_ARGS)
+    rows = json.loads(text.strip().splitlines()[-1])
+    n_edges = len(synthetic_planetoid("pubmed").src)
+    if [r["parties"] for r in rows] != [1, 2] or "NOTE:" not in text:
+        raise AssertionError(f"bench_scaling: {rows}")
+    for r in rows:
+        want = 6 * n_edges / r["epoch_s"]  # opt, L = 2: 3L phases
+        if not (np.isfinite(r["edge_iters_per_s"]) and
+                abs(r["edge_iters_per_s"] - want) <= 1e-9 * want):
+            raise AssertionError(f"bench_scaling: {r}, want {want}")
+
+    text = run_tool("example train_plaintext", train_plaintext.main,
+                    ["--epochs", str(EXAMPLE_EPOCHS)])
+    if f"epoch {EXAMPLE_EPOCHS:3d}: loss=" not in text:
+        raise AssertionError("train_plaintext: no final metrics")
+    text = run_tool("example train_secret_shared", train_secret_shared.main,
+                    ["--epochs", str(EXAMPLE_EPOCHS)])
+    losses = [float(line.split("loss=")[1].split()[0])
+              for line in text.splitlines() if "loss=" in line]
+    if len(losses) != 2 or not abs(losses[0] - losses[1]) <= MPC_LOGITS_TOL:
+        raise AssertionError(f"train_secret_shared: losses {losses}")
+    text = run_tool("example analytics", analytics.main, [])
+    if "secret-shared BFS == plaintext BFS: True" not in text:
+        raise AssertionError("analytics example: BFS differs")
+
+
 def main(argv) -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch sees no CUDA device; this script runs "
@@ -3381,6 +3594,7 @@ def main(argv) -> None:
 
     cli_phase()
     matrix_phase()
+    tools_phase()
 
     case, bench_counts = bench_phase()
     full_tile_check()

@@ -110,14 +110,15 @@ def make_engine(plan, param, variant, mpc, aggregation, device, **kw):
 
 
 def sharded_backend(plan, param, variant: str, mpc: bool, aggregation: str,
-                    device) -> str:
+                    device, hoist_agg: bool = True) -> str:
     """The backend the SHARDED deployment of this run takes: an explicit
     choice passes through, ``auto`` resolves by the engines' own rule with
     ``sharded=True`` on ``device`` (the card's rule there; the CSR kernel
-    on the CPU), as a party process of that deployment would."""
+    on the CPU), as a party process of that deployment would.
+    ``hoist_agg``: the secret-shared engines' (unopt only)."""
     if aggregation != "auto":
         return aggregation
-    hoisted = mpc and variant.startswith("unopt")  # the mpc default
+    hoisted = mpc and hoist_agg and variant.startswith("unopt")
     return select_backend(plan, device,
                           forward_widths(param, variant, hoisted),
                           ring=64 if mpc else False, sharded=True)
@@ -140,10 +141,11 @@ def _count_party(data_file: str, rank: int, world: int, port: int,
                              reorder=cfg["reorder"])
     group = distributed.init_party_group(rank, world, f"127.0.0.1:{port}",
                                          backend="gloo", device="cpu")
+    kw = {"hoist_agg": cfg["hoist_agg"]} if cfg["mpc"] else {}
     try:
         engine = make_engine(plan, param, cfg["variant"], cfg["mpc"],
                              cfg["backend"], "cpu", mode="sharded",
-                             group=group)
+                             group=group, **kw)
         kind = "forward" if cfg["variant"].endswith("inference") else "epoch"
         Path(out_file).write_text(json.dumps(engine_epoch_comm(engine,
                                                                kind)))
@@ -152,12 +154,13 @@ def _count_party(data_file: str, rank: int, world: int, port: int,
 
 
 def count_comm(ds: Dataset, tid, n_parties: int, variant: str, mpc: bool,
-               backend: str, reorder: bool) -> dict:
+               backend: str, reorder: bool, hoist_agg: bool = True) -> dict:
     """Party 0's counted bytes and rounds of one epoch (or forward) of the
     sharded engines on ``backend``, ``{"bytes": {...}, "rounds": {...}}``:
     ``n_parties`` party processes on the CPU over gloo, each building the
     whole plan from ``ds``'s edges and the partition ``tid`` ({vid:
-    party}). Raises if a party fails or the parties' counts differ."""
+    party}); ``hoist_agg`` as the secret-shared engines take it. Raises if
+    a party fails or the parties' counts differ."""
     tid_of = np.array([tid[v] for v in range(len(ds.features))], np.int64)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -168,7 +171,8 @@ def count_comm(ds: Dataset, tid, n_parties: int, variant: str, mpc: bool,
                                   default=lambda x: x.item()),
                  cfg=json.dumps({"name": ds.name, "variant": variant,
                                  "mpc": mpc, "backend": backend,
-                                 "reorder": reorder}))
+                                 "reorder": reorder,
+                                 "hoist_agg": hoist_agg}))
         port = distributed.free_port()
         outs = [tmp / f"party{r}.json" for r in range(n_parties)]
         logs = [open(tmp / f"party{r}.log", "w") for r in range(n_parties)]

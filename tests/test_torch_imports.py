@@ -1,4 +1,5 @@
-"""The port stands alone: no JAX and nothing of ``cognn_tpu`` in its imports,
+"""The port stands alone: no JAX and nothing of ``cognn_tpu``, of the JAX
+tools (``tools/``) or of the JAX examples (``examples/``) in its imports,
 and its entry points raise instead of falling back to the CPU."""
 
 import ast
@@ -29,7 +30,8 @@ def imported_modules(path):
 def test_no_jax_or_reference_imports(path):
     for mod in imported_modules(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib", "cognn_tpu"), (path, mod)
+        assert top not in ("jax", "jaxlib", "cognn_tpu", "tools",
+                           "examples"), (path, mod)
 
 
 def test_package_import_loads_no_jax():
@@ -112,14 +114,23 @@ def test_party_processes_raise_without_card(tmp_path):
 def test_scan_covers_every_subpackage():
     scanned = {p.parent.name for p in PORT_FILES}
     assert {"core", "mpc", "ops", "engine", "tools", "utils", "models",
-            "graph", "harness"} <= scanned
+            "graph", "harness", "examples"} <= scanned
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"cognn_tpu_torch/models/oracle.py",
             "cognn_tpu_torch/graph/native_io.py",
             "cognn_tpu_torch/tools/run_cluster.py",
             "cognn_tpu_torch/tools/log_parse.py",
             "cognn_tpu_torch/tools/summarize_matrix.py",
-            "cognn_tpu_torch/tools/golden_runs.py"} <= names
+            "cognn_tpu_torch/tools/golden_runs.py",
+            "cognn_tpu_torch/tools/profile_epoch.py",
+            "cognn_tpu_torch/tools/network_model.py",
+            "cognn_tpu_torch/tools/bench_scaling.py",
+            "cognn_tpu_torch/tools/plot_message_passing_comm.py",
+            "cognn_tpu_torch/tools/print_inter_edge_ratio.py",
+            "cognn_tpu_torch/examples/__init__.py",
+            "cognn_tpu_torch/examples/train_plaintext.py",
+            "cognn_tpu_torch/examples/train_secret_shared.py",
+            "cognn_tpu_torch/examples/analytics.py"} <= names
 
 
 def test_oracle_imports_no_torch():
@@ -137,9 +148,13 @@ def test_oracle_imports_no_torch():
 
 
 def test_new_entry_points_raise_without_card(tmp_path):
-    """The matrix driver and the golden runs default to the card and raise
-    without one, before any work."""
-    from cognn_tpu_torch.tools import golden_runs, run_cluster
+    """The matrix driver, the golden runs, the experiment tools and the
+    examples default to the card and raise without one, before any work."""
+    from cognn_tpu_torch.examples import (analytics, train_plaintext,
+                                          train_secret_shared)
+    from cognn_tpu_torch.tools import (bench_scaling, golden_runs,
+                                       network_model, profile_epoch,
+                                       run_cluster)
 
     if torch.cuda.is_available():
         pytest.skip("this host has a CUDA device")
@@ -149,3 +164,17 @@ def test_new_entry_points_raise_without_card(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         golden_runs.main(["--out", str(tmp_path / "g.json")])
     assert not (tmp_path / "log").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile_epoch.main(["--dataset", "cora_small", "--outdir",
+                            str(tmp_path / "trace")])
+    assert not (tmp_path / "trace").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        network_model.main(["--dataset", "cora_small", "--json",
+                            str(tmp_path / "n.json")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench_scaling.main(["--dataset", "cora_small"])
+    for example, argv in ((train_plaintext, ["--dataset", "cora_small"]),
+                          (train_secret_shared, []), (analytics, [])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            example.main(argv)
+    assert not (tmp_path / "n.json").exists()
