@@ -209,6 +209,31 @@
    parties sharing this card over gloo (its NOTE), its JSON printed; the
    three examples at EXAMPLE_EPOCHS epochs.
 
+19. Every stacked engine on ``bcsr`` or ``dense`` (``auto``
+   takes the CSR kernel on both cells) replays each request and epoch as a
+   CUDA graph (``cognn_tpu_torch/engine/graphs.py``), so steps 5, 7, 8,
+   10, 11, 14, 15, 16 and 17 hold the graphs through their gates (launch
+   counts, ``torch.equal`` to ``sparse``, the oracle, the 90-epoch
+   accuracy, the CLI's dumps, the matrix rows); the ``sparse`` references
+   never capture and run eager, as do the sharded parties and
+   ``profile_epoch``. ``graph_phase``, each
+   cell after step 14, holds the graphs against eager engines
+   (``cuda_graphs=False``) built from the same seeds (``graph_cases``:
+   opt and unopt, plaintext and secret-shared, unopt hoisted, RING32;
+   pubmed_4p also not hoisted; cora_2p also ``dense``): FORWARDS requests,
+   EPOCHS_CHECKED epochs and one more request, secret-shared logits,
+   metrics and revealed weights ``torch.equal``, plaintext within
+   LOGITS_TOL_OF_MAX of the largest (whether equal printed); the counts
+   of both engines FORWARDS and EPOCHS_CHECKED times ``forward_counts`` /
+   ``epoch_counts`` through the replays; the generator's offset after
+   every call equal to the eager engine's and growing; results handed out
+   earlier unchanged by later calls. Then GRAPH_CALLS_TIMED requests and
+   GRAPH_EPOCHS_TIMED epochs timed, graphed and eager in turns, the
+   weights held again, one epoch of each profiled (device busy, idle
+   share, the host's launch calls: ``cudaLaunchKernel`` against
+   ``cudaGraphLaunch``), peak device memory over each engine's build and
+   checked calls, and the capture time.
+
 The line before the last is one JSON object with each kernel's numbers
 (the engines' kernels also with their ``training_launches`` and
 ``launches_per_epoch``); the
@@ -408,6 +433,10 @@ PROFILE_KERNELS = (("csr_gather_sum", "oga", "spmm_csr_i64"),
 SCALING_ARGS = ("--dataset", "pubmed", "--parties", "1", "2", "--epochs",
                 "5")
 EXAMPLE_EPOCHS = 10
+# graph_phase: requests and epochs of a timing window, graphed and eager in
+# turns (as many epochs as EPOCHS_TIMED_UNOPT, for the same reason)
+GRAPH_CALLS_TIMED = 20
+GRAPH_EPOCHS_TIMED = 20
 
 
 def card_line() -> str:
@@ -1235,31 +1264,46 @@ def mpc_forward_phase(cell: str, mpc, mpc_sparse, z_plain, spmms) -> dict:
 def profile_phase(label: str, fn) -> dict:
     """Where one call of ``fn`` (a request, an epoch) spends its time: the
     device time of every kernel and copy (torch.profiler, CUPTI) against
-    the call's wall time, which the profiler itself inflates."""
+    the call's wall time, which the profiler itself inflates, and the
+    host's launch calls (``cuda*`` and ``cu*`` API). One call of ``fn`` runs
+    first as the profiler's warm-up step, untraced: without it CUPTI lost
+    a window's first device records now and then."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
         torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    by_name = {}
+        prof.step()
+    by_name, host_calls = {}, Counter()
     for e in prof.events():
+        if getattr(e, "is_user_annotation", False) \
+                or e.name.startswith("ProfilerStep"):
+            continue  # the step's span, on the device timeline too
         if e.device_type == DeviceType.CUDA:
             n, us = by_name.get(e.name, (0, 0.0))
             by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        elif "Launch" in e.name and e.name.startswith("cu"):
+            host_calls[e.name] += 1  # a launch call of the host's
     busy_ms = sum(us for _, us in by_name.values()) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     print(f"profile {label}: wall_ms={wall_ms!r} device_busy_ms={busy_ms!r} "
           f"device_ops={sum(n for n, _ in by_name.values())} "
-          f"idle_share={1 - busy_ms / wall_ms!r}", flush=True)
+          f"idle_share={1 - busy_ms / wall_ms!r} "
+          f"host_launch_calls={dict(host_calls)}", flush=True)
     for name, (n, us) in top:
         print(f"  {us / 1e3!r} ms x{n} {name[:110]}", flush=True)
     return {"wall_ms": wall_ms, "busy_ms": busy_ms,
-            "idle_share": 1 - busy_ms / wall_ms}
+            "idle_share": 1 - busy_ms / wall_ms,
+            "ops": sum(n for n, _ in by_name.values()),
+            "host_calls": dict(host_calls)}
 
 
 def epoch_counts(engine) -> dict:
@@ -2809,6 +2853,225 @@ def ring32_phase(cell: str, plan, param, spmm, dup, mac_ms: float,
             "counts": counts, "epoch_counts": e_counts,
             "shapes": fwd_shapes, "train_shapes": train}
 
+def graph_cases(cell: str) -> list:
+    """``graph_phase``'s engines on ``cell``: (label, secret-shared, keyword
+    arguments). CoGNN-Opt and CoGNN (unopt; the inference variants run the
+    same forward) plaintext and secret-shared on ``auto`` (the CSR kernel on
+    both cells), unopt hoisted, RING32, and not hoisted on pubmed_4p; the
+    dense backend on the dense cell."""
+    from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
+    from cognn_tpu_torch.core.ring import RING32
+
+    ring32 = FixedPointSpec(RING32, RING32_FRAC_BITS)
+    cases = [("opt", False, {"variant": "opt"}),
+             ("unopt", False, {"variant": "unopt"}),
+             ("mpc opt", True, {"variant": "opt"}),
+             ("mpc unopt hoisted", True, {"variant": "unopt"}),
+             ("mpc opt RING32", True, {"variant": "opt", "fp": ring32})]
+    if cell == "pubmed_4p":
+        cases.append(("mpc unopt not hoisted", True,
+                      {"variant": "unopt", "hoist_agg": False}))
+    if cell == DENSE_CELL:
+        cases += [(f"{label} dense", mpc, {"variant": "opt",
+                                           "aggregation": "dense"})
+                  for label, mpc in (("opt", False), ("mpc opt", True))]
+    return cases
+
+
+def graph_run(engine) -> dict:
+    """The calls ``graph_phase`` makes of each engine first: FORWARDS
+    requests, EPOCHS_CHECKED epochs through ``run_epochs_scan``, one more
+    request, the kernel counts set to 0 just before the requests and the
+    epochs and read just after, the generator's offset after each call
+    (secret-shared). The second request's logits and the epochs' metrics
+    are kept with a copy taken at once."""
+    gen = getattr(engine, "_gen", None)
+    spmms = [engine.spmm] if engine.spmm is not None else []
+    run = {"z": [], "offsets": []}
+
+    def offset():
+        if gen is not None:
+            run["offsets"].append(gen.get_offset())
+
+    reset_counts(spmms)
+    for _ in range(FORWARDS):
+        run["z"].append(engine.forward()[0])
+        offset()
+    run["forward_counts"] = read_counts(spmms)
+    reset_counts(spmms)
+    run["metrics"] = engine.run_epochs_scan(EPOCHS_CHECKED)
+    run["epoch_counts"] = read_counts(spmms)
+    offset()
+    run["z"].append(engine.forward()[0])
+    offset()
+    run["held"] = [(run["z"][1], run["z"][1].clone())] + [
+        (v, v.clone()) for v in run["metrics"].values()]
+    return run
+
+
+def graph_hold(label: str, mpc: bool, got, want) -> bool:
+    """Graphed ``got`` against eager ``want`` (tensors, or lists of them):
+    secret-shared ``torch.equal``, plaintext within LOGITS_TOL_OF_MAX of
+    the largest |want|. Raises; returns whether all are ``torch.equal``."""
+    if isinstance(got, torch.Tensor):
+        got, want = [got], [want]
+    equal = True
+    for a, b in zip(got, want, strict=True):
+        if torch.equal(a, b):
+            continue
+        equal = False
+        err = (a.double() - b.double()).abs().max().item()
+        tol = LOGITS_TOL_OF_MAX * b.double().abs().max().item()
+        if mpc or not err <= tol:
+            raise AssertionError(f"{label}: graphed differs from eager by "
+                                 f"{err!r} (tolerance "
+                                 f"{0.0 if mpc else tol!r})")
+    return equal
+
+
+def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
+               n_edges: int) -> None:
+    """One engine of ``graph_phase``: the graphed engine (the default) and
+    an eager one (``cuda_graphs=False``) built from the same seeds, each
+    through :func:`graph_run` with peak device memory read around its build
+    and calls; then requests and epochs timed in turns, one epoch of each
+    profiled. Gates: logits, every epoch's metrics and the (revealed)
+    weights graphed == eager (:func:`graph_hold`) after the checked epochs
+    and again after the timed ones; the counts of both each FORWARDS and
+    EPOCHS_CHECKED times :func:`forward_counts` / :func:`epoch_counts`
+    (through replays); the generator's offset graphed == eager after every
+    call, and growing; the kept results unchanged by every later call."""
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.mpc import MpcGasEngine
+
+    name = f"graph {cell} {label}"
+    runs = {}
+    for mode, flag in (("eager", False), ("graphed", None)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        alloc = torch.cuda.memory_allocated()
+        res = torch.cuda.memory_reserved()
+        engine = (MpcGasEngine if mpc else GasEngine)(
+            plan, param, device="cuda", cuda_graphs=flag, **kw)
+        if engine._graphs.enabled != (flag is None):
+            raise AssertionError(f"{name}: {mode} engine has graphs "
+                                 f"{engine._graphs.enabled}")
+        runs[mode] = graph_run(engine)
+        torch.cuda.synchronize()
+        runs[mode]["engine"] = engine
+        runs[mode]["peak"] = (torch.cuda.max_memory_allocated() - alloc,
+                              torch.cuda.max_memory_reserved() - res)
+    eager, graphed = runs["eager"], runs["graphed"]
+    g_eng, e_eng = graphed["engine"], eager["engine"]
+    want_f = {k: FORWARDS * v for k, v in forward_counts(g_eng).items()}
+    want_e = {k: EPOCHS_CHECKED * v for k, v in epoch_counts(g_eng).items()}
+    for mode, run in runs.items():
+        if run["forward_counts"] != want_f or run["epoch_counts"] != want_e:
+            raise AssertionError(f"{name} {mode}: launches "
+                                 f"{run['forward_counts']} in {FORWARDS} "
+                                 f"forwards, {run['epoch_counts']} in "
+                                 f"{EPOCHS_CHECKED} epochs; want {want_f}, "
+                                 f"{want_e}")
+
+    def weights(engine):
+        return engine.reveal_weights() if mpc else engine.weights
+
+    equal = {"logits": graph_hold(name, mpc, graphed["z"], eager["z"]),
+             "metrics": graph_hold(name, mpc,
+                                   list(graphed["metrics"].values()),
+                                   list(eager["metrics"].values())),
+             "weights": graph_hold(name, mpc, weights(g_eng),
+                                   weights(e_eng))}
+
+    def offsets_held(when: str) -> None:
+        if not mpc:
+            return
+        g, e = g_eng._gen.get_offset(), e_eng._gen.get_offset()
+        got = graphed["offsets"]
+        if got != eager["offsets"] or g != e or any(
+                b <= a for a, b in zip(got, got[1:])):
+            raise AssertionError(f"{name}: generator offsets {when} graphed "
+                                 f"{got} / {g}, eager {eager['offsets']} / "
+                                 f"{e}")
+
+    offsets_held("after the checked calls")
+    pool = tuple(g_eng._graphs._pool)
+    pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                     if tuple(seg.get("segment_pool_id", ())) == pool)
+
+    def requests(engine):
+        for _ in range(GRAPH_CALLS_TIMED):
+            engine.forward()
+
+    def epochs(engine):
+        engine.run_epochs_scan(GRAPH_EPOCHS_TIMED)
+
+    ms = {}
+    for what, fn, calls in (("request", requests, GRAPH_CALLS_TIMED),
+                            ("epoch", epochs, GRAPH_EPOCHS_TIMED)):
+        ms[what] = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(runs[mode]["engine"])
+            torch.cuda.synchronize()
+            ms[what][mode].append((time.perf_counter() - t0) * 1e3 / calls)
+    prof = {mode: profile_phase(f"{name} {mode} epoch",
+                                runs[mode]["engine"].run_epoch)
+            for mode in ("graphed", "eager")}
+    scan = {mode: profile_phase(f"{name} {mode} scan", lambda: epochs(
+        runs[mode]["engine"])) for mode in ("graphed", "eager")}
+    graph_hold(name, mpc, weights(g_eng), weights(e_eng))
+    if mpc:
+        graphed["offsets"].append(g_eng._gen.get_offset())
+        eager["offsets"].append(e_eng._gen.get_offset())
+    offsets_held("after the timed and profiled calls")
+    for kept, copy in graphed["held"]:
+        if not torch.equal(kept, copy):
+            raise AssertionError(f"{name}: a result handed out earlier "
+                                 "changed")
+    epoch_ms = min(ms["epoch"]["graphed"])
+    print(f"{name}: graphed == eager (torch.equal: {equal}; plaintext "
+          f"within {LOGITS_TOL_OF_MAX} x max): logits of {FORWARDS + 1} "
+          f"requests, metrics of {EPOCHS_CHECKED} epochs, weights after "
+          f"them and again after the timed and profiled ones; launches "
+          f"{graphed['forward_counts']} in {FORWARDS} "
+          f"requests, {graphed['epoch_counts']} in {EPOCHS_CHECKED} epochs, "
+          f"as eager; generator offsets {graphed['offsets']} as eager; "
+          f"earlier results unchanged", flush=True)
+    print(f"{name}: ms a request over {GRAPH_CALLS_TIMED} (in turns) graphed "
+          f"{ms['request']['graphed']!r} eager {ms['request']['eager']!r}; "
+          f"ms an epoch over {GRAPH_EPOCHS_TIMED} graphed "
+          f"{ms['epoch']['graphed']!r} eager {ms['epoch']['eager']!r}; "
+          f"edge-iterations/s graphed "
+          f"{g_eng.epoch_layers * n_edges / epoch_ms * 1e3!r}; one epoch "
+          f"busy {prof['graphed']['busy_ms']!r} ms idle "
+          f"{prof['graphed']['idle_share']!r} graphed, "
+          f"{prof['eager']['busy_ms']!r} / {prof['eager']['idle_share']!r} "
+          f"eager; a scan of {GRAPH_EPOCHS_TIMED} busy "
+          f"{scan['graphed']['busy_ms']!r} ms idle "
+          f"{scan['graphed']['idle_share']!r} graphed, "
+          f"{scan['eager']['busy_ms']!r} / {scan['eager']['idle_share']!r} "
+          f"eager; host launch calls an epoch graphed "
+          f"{prof['graphed']['host_calls']} eager "
+          f"{prof['eager']['host_calls']}; peak device memory (allocated, "
+          f"reserved) over the build and the checked calls graphed "
+          f"{graphed['peak']} B eager {eager['peak']} B; the graphs' pool "
+          f"{pool_bytes or 'not measured'} B; capture s "
+          f"{g_eng._graphs.capture_s}; {card_line()}", flush=True)
+
+
+def graph_phase(cell: str, plan, param, n_edges: int) -> None:
+    """Requests and epochs as CUDA graph replays against the eager engines
+    that the graphs are captured from: :func:`graph_case` for each of
+    :func:`graph_cases`."""
+    t0 = time.perf_counter()
+    for label, mpc, kw in graph_cases(cell):
+        graph_case(cell, plan, param, label, mpc, kw, n_edges)
+    print(f"graph {cell}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def cell_graphs(dataset: str, parties: int):
     """The parties' graphs of a cell as ``party_plan`` builds them
     (synthetic ``dataset``, vertex v to party v mod ``parties``), and its
@@ -3372,6 +3635,7 @@ def main(argv) -> None:
         an = analytics_phase(cell, dataset, parties, mac_ms)
         r32 = ring32_phase(cell, plan, param, engine.spmm, dup, mac_ms,
                            n_edges)
+        graph_phase(cell, plan, param, n_edges)
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{

@@ -50,17 +50,28 @@ receives. Its ``dense`` holds the party's block of ``plan.dense_adj`` as one
 [P·V dst, V src] matrix (the plan must be built with ``dense=True``), one
 ``torch.matmul`` and the same halo. ``sparse`` ships its mirror rows through
 the same halo.
+
+Stacked on the card on ``bcsr`` or ``dense``, a request and an epoch are each
+one replay of a CUDA graph captured from this code at their first call
+(:mod:`cognn_tpu_torch.engine.graphs`, the JAX package's ``jit``), and
+``run_epochs_scan(n)`` replays the epoch's graph n times (its ``lax.scan``);
+``cuda_graphs=False`` runs them eager. Sharded mode and ``sparse`` run eager.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from cognn_tpu_torch.config import GNNParam
+from cognn_tpu_torch.engine.graphs import (
+    EngineGraphs,
+    kernel_counters,
+    use_graphs,
+)
 from cognn_tpu_torch.engine.plan import (
     DENSE_ADJ_BUDGET,
     DevicePlan,
@@ -226,11 +237,20 @@ def gcn_metrics(arr: _PlanArrays,
     }
 
 
-def stack_epochs(per_epoch: List[Dict[str, torch.Tensor]]
-                 ) -> Dict[str, torch.Tensor]:
-    """Per-epoch metric dicts ([P] each) -> one dict of [P, n] tensors."""
-    return {k: torch.stack([m[k] for m in per_epoch], dim=1)
-            for k in per_epoch[0]}
+def stack_epochs(run_epoch: Callable[[], Dict[str, torch.Tensor]],
+                 n: int) -> Dict[str, torch.Tensor]:
+    """``n`` calls of ``run_epoch`` (one epoch, its metrics [P] each) ->
+    one dict of [P, n] tensors, each epoch's metrics written into stacks
+    allocated at the first."""
+    stack = None
+    for i in range(n):
+        metrics = run_epoch()
+        if stack is None:
+            stack = {k: v.new_empty((*v.shape, n))
+                     for k, v in metrics.items()}
+        for k, v in metrics.items():
+            stack[k][..., i] = v
+    return stack
 
 
 def _take_rows(h: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -442,12 +462,21 @@ class GasEngine:
     the group's device. Sharded, every tensor has a local party axis of 1:
     the weights ``[1, d_in, d_out]``, the logits ``[1, V, C]``, each
     metric ``[1]``.
+
+    ``cuda_graphs`` (:mod:`cognn_tpu_torch.engine.graphs`): by default a
+    stacked engine on the card on ``bcsr`` or ``dense`` runs each request
+    and each epoch as a replay of a CUDA graph captured from its eager code
+    at the first call; ``False`` runs it eager, ``True`` raises where it
+    cannot capture (the CPU, sharded mode, ``sparse``). The weights are
+    updated in place, the graphs' static inputs; ``weights`` hands out
+    copies, and assigning it replaces them and drops the graphs.
     """
 
     def __init__(self, plan: DevicePlan, param: GNNParam,
                  variant: str = "opt", mode: str = "stacked", seed: int = 42,
                  aggregation: str = "auto", device="cuda",
-                 group: Optional[PartyGroup] = None):
+                 group: Optional[PartyGroup] = None,
+                 cuda_graphs: Optional[bool] = None):
         if variant not in ("opt", "opt_inference", "unopt",
                            "unopt_inference"):
             raise ValueError(variant)
@@ -475,17 +504,34 @@ class GasEngine:
         self.aggregation = aggregation
         self.spmm, self.adj_t = _aggregation_operands(plan, aggregation,
                                                       self.rank, self.device)
+        self._graphs = EngineGraphs(
+            use_graphs(cuda_graphs, self.device, self.rank, aggregation),
+            kernel_counters(self.spmm))
         self.x0 = tensors["features"]
         dims = param.layer_dims
         # per-party weight replicas (reference keeps one per party and
         # averages after each layer update, gcn.h:747-802)
-        self.weights: List[torch.Tensor] = [
+        self.weights = [
             torch.as_tensor(glorot_init(dims[i], dims[i + 1], seed),
                             dtype=torch.float32)
             .expand(self.Pl, dims[i], dims[i + 1]).contiguous()
             .to(self.device)
             for i in range(self.L)
         ]
+
+    @property
+    def weights(self) -> List[torch.Tensor]:
+        """The weight replicas, one ``[P, d_in, d_out]`` a layer: copies,
+        which no later epoch changes."""
+        return [w.clone() for w in self._weights]
+
+    @weights.setter
+    def weights(self, weights) -> None:
+        """Replace the weights by copies of ``weights`` (any party count)
+        and drop the captured graphs, which read the old ones."""
+        self._weights = [w.clone(memory_format=torch.contiguous_format)
+                         for w in weights]
+        self._graphs.clear()
 
     # ------------------------------------------------------------------
     # aggregation (scatter -> premerge/OGA -> halo exchange -> gather)
@@ -669,25 +715,38 @@ class GasEngine:
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
+    def _epoch_step(self) -> Dict[str, torch.Tensor]:
+        """One epoch, the new weights written into the weight tensors in
+        place after all reads (a graph's static inputs); returns its
+        forward's metrics."""
+        epoch = self._epoch_unopt if self.unopt else self._epoch_opt
+        weights, metrics = epoch(self.comm, self.arr, self._weights, self.x0)
+        for w, new in zip(self._weights, weights):
+            w.copy_(new)
+        return metrics
+
+    def _epoch(self) -> Dict[str, torch.Tensor]:
+        """One epoch through the graphs: a replay's metrics are the graph's
+        own, valid until the next epoch."""
+        return self._graphs.run("epoch", self._epoch_step)
+
     @torch.no_grad()
     def run_epoch(self) -> Dict[str, torch.Tensor]:
         """One training epoch; returns its forward's per-party metrics."""
-        epoch = self._epoch_unopt if self.unopt else self._epoch_opt
-        self.weights, metrics = epoch(self.comm, self.arr, self.weights,
-                                      self.x0)
-        return metrics
+        return self._graphs.call("epoch", self._epoch_step)
 
+    @torch.no_grad()
     def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
         """``n`` epochs; returns the last one's metrics."""
-        metrics = None
-        for _ in range(n):
-            metrics = self.run_epoch()
-        return metrics
+        for _ in range(n - 1):
+            self._epoch()
+        return self.run_epoch() if n > 0 else None
 
+    @torch.no_grad()
     def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
         """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
         (sharded [1, n]) as the JAX package's scan returns them."""
-        return stack_epochs([self.run_epoch() for _ in range(n)])
+        return stack_epochs(self._epoch, n)
 
     @staticmethod
     def metrics_host(metrics: Dict[str, torch.Tensor]
@@ -703,4 +762,5 @@ class GasEngine:
     @torch.no_grad()
     def forward(self):
         """Full-graph inference: (logits [P, V, C], prob, metrics)."""
-        return self._forward_body(self.comm, self.arr, self.weights, self.x0)
+        return self._graphs.call("forward", lambda: self._forward_body(
+            self.comm, self.arr, self._weights, self.x0))

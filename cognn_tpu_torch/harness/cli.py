@@ -102,7 +102,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help=argparse.SUPPRESS)
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace (CPU and CUDA "
-                        "activity) of the run to DIR")
+                        "activity) of the run to DIR; the engine runs "
+                        "eager, each op launched from its Python frame, "
+                        "not as CUDA graph replays")
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                    help="device to run on (cuda raises without a card)")
     return p

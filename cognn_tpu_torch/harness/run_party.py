@@ -186,14 +186,16 @@ def _run(args, cfg: RunConfig, fp: FixedPointSpec, group) -> int:
                                  dense=(aggregation == "dense") or None,
                                  reorder=args.reorder)
     mode = "stacked" if group is None else "sharded"
+    # a profiled run traces the eager ops, which a graph replay hides
+    cuda_graphs = False if args.profile else None
     if args.mpc:
         engine = MpcGasEngine(plan, param, cfg.variant, fp=fp,
                               aggregation=aggregation, device=device,
-                              mode=mode, group=group)
+                              mode=mode, group=group, cuda_graphs=cuda_graphs)
     else:
         engine = GasEngine(plan, param, cfg.variant, mode=mode,
                            aggregation=aggregation, device=device,
-                           group=group)
+                           group=group, cuda_graphs=cuda_graphs)
 
     ckpt_dir = Path("checkpoints") / cfg.setting
     if cfg.no_preprocess and try_restore(engine, ckpt_dir):

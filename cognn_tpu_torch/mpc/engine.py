@@ -73,6 +73,11 @@ with both shares side by side, then the same halo. Each process owns its own
 ``torch.Generator``: its shares differ from a stacked engine's, and under
 exact truncation its revealed values do not.
 
+Stacked on the card on ``bcsr`` or ``dense``, requests and epochs replay CUDA
+graphs as the plaintext engine's do (:mod:`cognn_tpu_torch.engine.graphs`),
+with the engine's generator registered with every graph: each replay draws
+fresh share randomness, as an eager call does.
+
 The JAX package's TPU workarounds (uint32 limbs, byte planes and their
 exactness guards, ``compile_mode="phase"`` and the unopt phase programs,
 ``prng_impl``, the fusion barrier, the VMEM veto of wide aggregations) are
@@ -103,7 +108,11 @@ from cognn_tpu_torch.engine.gas import (
     forward_widths,
     gcn_metrics,
     select_backend,
-    stack_epochs,
+)
+from cognn_tpu_torch.engine.graphs import (
+    EngineGraphs,
+    kernel_counters,
+    use_graphs,
 )
 from cognn_tpu_torch.engine.plan import DevicePlan, plan_tensors, set_split
 from cognn_tpu_torch.mpc.protocol import Protocol
@@ -158,6 +167,12 @@ class MpcGasEngine:
     ``group``, this process's :class:`PartyGroup` (every share tensor
     ``[2, 1, ...]``, the generator seeded from ``prng_seed`` and the
     rank).
+
+    ``cuda_graphs``: as :class:`cognn_tpu_torch.engine.gas.GasEngine`'s
+    (requests and epochs replayed as CUDA graphs, stacked on the card on
+    ``bcsr`` or ``dense``), the generator registered with every graph. The
+    weight shares are updated in place; ``weights_sh`` hands out copies,
+    and assigning it, or :meth:`install_state`, drops the graphs.
     """
 
     def __init__(self, plan: DevicePlan, param: GNNParam,
@@ -167,7 +182,8 @@ class MpcGasEngine:
                  prng_seed: int = 0, mode: str = "stacked",
                  aggregation: str = "auto", nonlinear: str = "reconstruct",
                  hoist_agg: bool = True, device="cuda",
-                 group: PartyGroup | None = None):
+                 group: PartyGroup | None = None,
+                 cuda_graphs: bool | None = None):
         if variant not in ("opt", "opt_inference", "unopt",
                            "unopt_inference"):
             raise ValueError(variant)
@@ -206,6 +222,9 @@ class MpcGasEngine:
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(prng_seed if self.rank is None
                               else _party_seed(prng_seed, self.rank))
+        self._graphs = EngineGraphs(
+            use_graphs(cuda_graphs, self.device, self.rank, aggregation),
+            kernel_counters(self.spmm), (self._gen,))
 
         # share the pre-normalized features and the Glorot weights (one
         # replica per party, as the reference keeps them)
@@ -238,7 +257,8 @@ class MpcGasEngine:
         :func:`cognn_tpu_torch.convert.mpc_state_from_jax`, and redo the
         layer-0 hoist (for unopt with ``hoist_agg``, agg(x0) with it; in
         sharded mode every party installs at once, since the hoist runs the
-        halo)."""
+        halo). The engine keeps copies of the weights and drops its captured
+        graphs."""
         P, V = self.Pl, self.plan.V
         dims = self.param.layer_dims
         want = [("x0_sh", x0_sh, (2, P, V, dims[0])),
@@ -257,7 +277,7 @@ class MpcGasEngine:
                                  f"{shape} on {self.device}, got {t.dtype} "
                                  f"{tuple(t.shape)} on {t.device}")
         self.x0_sh = x0_sh
-        self.weights_sh: List[torch.Tensor] = list(weights_sh)
+        self.weights_sh = weights_sh
         self.n0_fp = n0_fp
         # the layer-0 A side is loop-invariant: x0 (opt) or, hoisted,
         # agg(x0) (unopt; its randomness from the engine's generator, not
@@ -274,6 +294,20 @@ class MpcGasEngine:
         self.x0_prep_bwd = self.x0_prep.transpose(1, 2)
         if self.variant in ("opt", "unopt"):
             self.x0_prep_bwd = self.x0_prep_bwd.contiguous()
+
+    @property
+    def weights_sh(self) -> List[torch.Tensor]:
+        """The weight shares, ``[2, P, d_in, d_out]`` a layer: copies, which
+        no later epoch changes."""
+        return [w.clone() for w in self._weights_sh]
+
+    @weights_sh.setter
+    def weights_sh(self, weights_sh) -> None:
+        """Replace the weight shares by copies of ``weights_sh`` and drop
+        the captured graphs, which read the old ones."""
+        self._weights_sh = [w.clone(memory_format=torch.contiguous_format)
+                            for w in weights_sh]
+        self._graphs.clear()
 
     # ------------------------------------------------------------------
     def _scale_rows(self, sh: torch.Tensor,
@@ -352,17 +386,20 @@ class MpcGasEngine:
     def forward(self):
         """Full-graph inference in share space: (revealed logits f32
         [P, V, C], prob, metrics)."""
+        return self._graphs.call("forward", self._forward_body)
+
+    def _forward_body(self):
         proto, gen = self.proto, self._gen
         h = self.x0_sh
         for l in range(self.L):
             if self.unopt:
-                h = self._unopt_layer(l, h, self.weights_sh[l])[1]
+                h = self._unopt_layer(l, h, self._weights_sh[l])[1]
             else:
                 if l == 0:
                     h = proto.matmul_prepped(gen, self.x0_prep,
-                                             self.weights_sh[0])
+                                             self._weights_sh[0])
                 else:
-                    h = proto.matmul(gen, h, self.weights_sh[l])
+                    h = proto.matmul(gen, h, self._weights_sh[l])
                     h = self._scale_rows(h, self.n0_fp)
                 h = self._aggregate(self.arr, h, dest_scale=True)
             if l != self.L - 1:
@@ -402,12 +439,12 @@ class MpcGasEngine:
         return self.proto.scale_const(self._gen, total,
                                       1.0 / self.P).expand_as(w_sh)
 
-    def _epoch_opt(self) -> Dict[str, torch.Tensor]:
+    def _epoch_opt(self):
         """One CoGNN-Opt training epoch on shares, 3L phases
-        (cognn_tpu/mpc/engine.py:1176-1232); updates ``weights_sh`` and
-        returns the forward's metrics."""
+        (cognn_tpu/mpc/engine.py:1176-1232); returns the new weight shares
+        and the forward's metrics."""
         L, proto, gen, arr = self.L, self.proto, self._gen, self.arr
-        weights = list(self.weights_sh)
+        weights = list(self._weights_sh)
         h = None
         h_in: List[torch.Tensor] = [None] * L
         z_mask: List[torch.Tensor] = [None] * L
@@ -451,8 +488,7 @@ class MpcGasEngine:
                     d = proto.matmul(gen, h_in[l].transpose(-1, -2), h)
                 weights[l] = self._sgd_step(weights[l], d)
                 h = g
-        self.weights_sh = weights
-        return metrics
+        return weights, metrics
 
     def _sgd_step(self, w_sh: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
         """SGD on a layer's weight shares with the weight gradient ``d``:
@@ -463,12 +499,12 @@ class MpcGasEngine:
         step = proto.scale_const(gen, d, float(self.param.learning_rate))
         return self._weight_mean(proto.sub(w_sh, step))
 
-    def _epoch_unopt(self) -> Dict[str, torch.Tensor]:
+    def _epoch_unopt(self):
         """One CoGNN (unopt) training epoch on shares, 2L phases
-        (cognn_tpu/mpc/engine.py:1234-1290); updates ``weights_sh`` and
-        returns the forward's metrics."""
+        (cognn_tpu/mpc/engine.py:1234-1290); returns the new weight shares
+        and the forward's metrics."""
         L, proto, gen = self.L, self.proto, self._gen
-        weights = list(self.weights_sh)
+        weights = list(self._weights_sh)
         h = self.x0_sh
         ah: List[torch.Tensor] = [None] * L  # None for layer 0 hoisted
         z_mask: List[torch.Tensor] = [None] * L
@@ -498,30 +534,28 @@ class MpcGasEngine:
             if l != 0:
                 h = self._aggregate(self.arr, self._scale_rows(g, self.n0_fp),
                                     dest_scale=L + k + 2 != 2 * L)
-        self.weights_sh = weights
+        return weights, metrics
+
+    def _epoch_step(self) -> Dict[str, torch.Tensor]:
+        """One epoch, the new weight shares written into the weight tensors
+        in place after all reads (a graph's static inputs); returns its
+        forward's metrics."""
+        weights, metrics = (self._epoch_unopt() if self.unopt
+                            else self._epoch_opt())
+        for w, new in zip(self._weights_sh, weights):
+            w.copy_(new)
         return metrics
 
-    @torch.no_grad()
-    def run_epoch(self) -> Dict[str, torch.Tensor]:
-        """One secret-shared training epoch; returns its forward's
-        per-party metrics (from the revealed prediction)."""
-        return self._epoch_unopt() if self.unopt else self._epoch_opt()
-
-    def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
-        """``n`` epochs; returns the last one's metrics."""
-        metrics = None
-        for _ in range(n):
-            metrics = self.run_epoch()
-        return metrics
-
-    def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
-        """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
-        as the JAX package's scan returns them."""
-        return stack_epochs([self.run_epoch() for _ in range(n)])
+    # one epoch, n epochs, n epochs stacked: the plaintext engine's, on
+    # this engine's _epoch_step (metrics from the revealed prediction)
+    _epoch = GasEngine._epoch
+    run_epoch = GasEngine.run_epoch
+    run_epochs = GasEngine.run_epochs
+    run_epochs_scan = GasEngine.run_epochs_scan
 
     @torch.no_grad()
     def reveal_weights(self) -> List[torch.Tensor]:
-        return [self.proto.reveal(w) for w in self.weights_sh]
+        return [self.proto.reveal(w) for w in self._weights_sh]
 
     metrics_host = staticmethod(GasEngine.metrics_host)
     metrics_local = staticmethod(GasEngine.metrics_local)

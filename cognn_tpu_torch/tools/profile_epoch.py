@@ -5,7 +5,11 @@ Traces ``--reps`` calls of ``run_epochs_scan(--scan)`` on a stacked
 :class:`~cognn_tpu_torch.mpc.MpcGasEngine` with the Python tracer on
 (``with_stack=True``), exports the Chrome trace, and attributes every
 device event (kernel, memcpy, memset) to the engine function that launched
-it:
+it. The engine is built with ``cuda_graphs=False`` and runs eager, as the
+output says: on the card the stacked engines replay each epoch as one CUDA
+graph (:mod:`cognn_tpu_torch.engine.graphs`), whose launch carries no
+Python frame to attribute its kernels to. The device time an epoch is the
+same work either way; the wall time is the eager engine's.
 
   1. the event's ``correlation`` finds its launch on the host (a
      ``cuda_runtime`` or ``cuda_driver`` event: ``cudaLaunchKernel``,
@@ -111,7 +115,7 @@ def build_engine(dataset, parties, agg, variant, device="cuda"):
     reorder = dataset == "pubmed"
     plan = build_device_plan(graphs, lane=128, reorder=reorder)
     eng = MpcGasEngine(plan, ds.param, variant, aggregation=agg,
-                       device=device)
+                       device=device, cuda_graphs=False)
     return ds, eng
 
 
@@ -131,11 +135,13 @@ _FUNC_RULES = {  # (file, function) overrides
     ("mpc/engine.py", "_weight_mean"): "apply",
     ("mpc/engine.py", "weight_total"): "apply",
     ("mpc/engine.py", "run_epochs_scan"): "scan-overhead",
+    ("mpc/engine.py", "_epoch_step"): "apply",  # the weight write-back
     ("engine/gas.py", "_aggregate"): "oga",
     ("engine/gas.py", "halo"): "oga",
     ("engine/gas.py", "gcn_metrics"): "apply",
     ("engine/gas.py", "acc"): "apply",  # gcn_metrics' nested accuracy
     ("engine/gas.py", "stack_epochs"): "scan-overhead",
+    ("engine/gas.py", "_epoch_step"): "apply",
     ("mpc/protocol.py", "matmul"): "matmul",
     ("mpc/protocol.py", "matmul_prepped"): "matmul",
     ("mpc/protocol.py", "prep_matmul_a"): "matmul",
@@ -464,7 +470,8 @@ def main(argv=None) -> int:
     ds, eng = build_engine(args.dataset, args.parties, args.agg,
                            args.variant, device)
     log(f"device={device} {args.dataset} P={args.parties} "
-        f"agg={eng.aggregation} variant={args.variant}")
+        f"agg={eng.aggregation} variant={args.variant} eager "
+        "(cuda_graphs=False: a graph replay carries no Python frames)")
     t0 = time.perf_counter()
     eng.run_epochs_scan(args.scan)
     _sync(device)
