@@ -1,6 +1,9 @@
 """Smoke run of the PyTorch/CUDA port (``cognn_tpu_torch``) on one GPU.
 
     python3 chip_smoke.py        # from the repository root, on a CUDA machine
+    python3 chip_smoke.py --sharded  # steps 1, 2 and 12 only: the sharded
+                                     # parties, over NCCL too on a host
+                                     # with a card a party
 
 1. Prints the card's name and power limit (``nvidia-smi``).
 2. Builds every CUDA kernel from ``cognn_tpu_torch/csrc`` (one ``nvcc`` per
@@ -134,9 +137,18 @@
 12. Drives the sharded mode of each cell before step 11 (``sharded_phase``):
    P party processes of this script on the card, one process a party, the
    collectives over gloo through host copies, and over NCCL as well where
-   the host has a card a party. Each party holds its kernel and collective
-   counts a forward and an epoch; the gathered results are held to the
-   stacked engines built here (plaintext within LOGITS_TOL_OF_MAX and
+   the host has a card a party. Each party builds its engines (plaintext
+   opt and unopt, secret-shared opt and unopt hoisted; the dense
+   secret-shared forward on the dense cell) twice from the same seeds,
+   graphed (the default: CUDA graphs split at the collectives) and eager,
+   and holds graphed to eager ``torch.equal`` (logits, every epoch's
+   metrics, weights and share bits), with equal launch counts, collective
+   calls and bytes, generator offsets, and one graph more a step than its
+   collectives; both hold their kernel and collective counts a forward
+   and an epoch; requests and epochs are timed graphed and eager in turns,
+   one epoch of each profiled on party 0 (the host's launch calls), the
+   collectives' ms synchronized. The gathered graphed results are held to
+   the stacked engines built here (plaintext within LOGITS_TOL_OF_MAX and
    TRAIN_WEIGHTS_TOL_OF_MAX of the largest, losses within
    SHARDED_LOSS_TOL, accuracies equal; secret-shared reveals and metrics
    ``torch.equal``), and the int64 collectives must wrap like numpy
@@ -157,9 +169,14 @@
    engine on the CPU (``torch.equal``; plaintext pagerank rtol
    PAGERANK_CPU_RTOL), to a float64 host reference, and secret-shared to
    plaintext at the tests' tolerances; pagerank's counts set to 0 just
-   before its run and read just after (one f32 or ring CSR SpMM a sweep);
-   ms a sweep and the idle share of one profiled sweep. The CSR kernels at
-   D = 1 on the kernels line (``[cell pagerank]``).
+   before its run and read just after (one f32 or ring CSR SpMM a sweep).
+   Each engine on the card is built graphed (the default, a
+   CUDA graph a sweep) and eager, held ``torch.equal`` (secret-shared also
+   the shares and the generator offsets, and a run after one with another
+   seed; pagerank's ``tol`` stop too), ms a sweep of each in turns, and one
+   profiled run of each (busy, idle share, the host's launch calls a
+   sweep). The CSR kernels at D = 1 on the kernels line (``[cell
+   pagerank]``).
 14. Drives the 32-bit ring on each cell after step 13 (``ring32_phase``):
    the int32 ring SpMM and K3 mod 2^32 held ``torch.equal`` and timed at
    the RING32 forward's and epoch's shapes (``spmm_csr_i32``,
@@ -209,14 +226,16 @@
    parties sharing this card over gloo (its NOTE), its JSON printed; the
    three examples at EXAMPLE_EPOCHS epochs.
 
-19. Every stacked engine on ``bcsr`` or ``dense`` (``auto``
-   takes the CSR kernel on both cells) replays each request and epoch as a
-   CUDA graph (``cognn_tpu_torch/engine/graphs.py``), so steps 5, 7, 8,
-   10, 11, 14, 15, 16 and 17 hold the graphs through their gates (launch
-   counts, ``torch.equal`` to ``sparse``, the oracle, the 90-epoch
-   accuracy, the CLI's dumps, the matrix rows); the ``sparse`` references
-   never capture and run eager, as do the sharded parties and
-   ``profile_epoch``. ``graph_phase``, each
+19. Every engine on ``bcsr`` or ``dense`` (``auto`` takes the CSR kernel
+   on both cells) replays each request and epoch as CUDA graphs
+   (``cognn_tpu_torch/engine/graphs.py``; sharded, split at the
+   collectives), and every analytics sweep as one, so steps 5, 7, 8,
+   10, 11, 12, 13, 14, 15, 16 and 17 hold the graphs through their gates
+   (launch counts, ``torch.equal`` to ``sparse`` and to the stacked
+   engines, the oracle, the 90-epoch accuracy, the CLI's dumps, the
+   matrix rows, the comm model's bytes); the ``sparse`` references never
+   capture and run eager, as does ``profile_epoch``. ``graph_phase``,
+   each
    cell after step 14, holds the graphs against eager engines
    (``cuda_graphs=False``) built from the same seeds (``graph_cases``:
    opt and unopt, plaintext and secret-shared, unopt hoisted, RING32;
@@ -378,7 +397,15 @@ SHARDED_JAX_PATH = {
                  "P*V dst blocks (cognn_tpu/engine/gas.py:573-588; "
                  "cognn_tpu/mpc/engine.py:962-973)",
 }
-SHARDED_EPOCHS_TIMED = 20  # epochs of a sharded timing window, per party
+SHARDED_EPOCHS_TIMED = 10  # epochs of a sharded timing window, per party
+SHARDED_CALLS_TIMED = 10  # requests of a sharded timing window, per party
+# (key, secret-shared, variant, aggregation) of the sharded parties' engines
+SHARDED_CASES = (("plain", False, "opt", "bcsr"),
+                 ("plain unopt", False, "unopt", "bcsr"),
+                 ("mpc", True, "opt", "bcsr"),
+                 ("unopt", True, "unopt", "bcsr"),  # hoisted agg(x0)
+                 ("dense", True, "opt_inference", "dense"))  # DENSE_CELL
+SHARDED_TIMED = ("plain", "mpc", "unopt", "dense")  # timed, graphed and eager
 SHARDED_GROUP_TIMEOUT_S = 300  # rendezvous and each collective
 SHARDED_RUN_TIMEOUT_S = 600  # a cell's party processes, start to end
 # a party's plaintext loss against the stacked engine's party row (f32
@@ -391,6 +418,8 @@ RING_MATMUL_REPLACES = "cognn_tpu/ops/intmatmul.py:147"
 # the vertex analytics (analytics_phase): pagerank's sweeps, the bound on
 # the MIN programs' sweeps to their fixpoint, sssp's weights
 PAGERANK_SWEEPS = 20
+PAGERANK_TOL = 1e-7  # the tol stop, graphed against eager
+SS_OTHER_SEED = 7  # a run between two seed-0 runs of one engine
 MAX_SWEEPS = 2000
 SSSP_WEIGHT_SEED = 42  # weights uniform in [0.5, 2)
 # card vs the same engine on the CPU: pagerank's f32 sums in another order
@@ -1732,17 +1761,23 @@ def sharded_party(cell: str, dataset: str, parties: int, rank: int,
     """One party process of :func:`sharded_phase` (``chip_smoke.py
     --sharded-party ...``): party ``rank`` of ``parties`` on
     ``cuda:{rank % cards}``, collectives over ``backend``. Builds the
-    cell's plan from the seed as the stacked engines do, and runs with the
-    counts (kernels and collectives) set to 0 just before and read just
-    after each part, each held to its expected number: the plaintext
-    CoGNN-Opt engine on ``bcsr`` (FORWARDS requests, EPOCHS_CHECKED epochs,
-    SHARDED_EPOCHS_TIMED timed), the secret-shared one (EPOCHS_CHECKED
-    epochs, a forward, SHARDED_EPOCHS_TIMED timed), the secret-shared
-    unopt with the hoisted agg(x0) (EPOCHS_CHECKED epochs) and, on the
-    dense cell, the secret-shared dense forward; then the wrap operands
-    through ``all_reduce`` and ``all_to_all``. Saves the results, on the
-    host, to ``out_file``."""
-    from cognn_tpu_torch.engine import GasEngine, comm_model
+    cell's plan from the seed as the stacked engines do, then each of
+    SHARDED_CASES twice from the same seeds: graphed (the default, CUDA
+    graphs split at the collectives) and eager (``cuda_graphs=False``).
+    Each drives FORWARDS requests, EPOCHS_CHECKED epochs
+    (``run_epochs_scan``) and one more request, the counts (kernels and
+    collectives) set to 0 just before and read just after each part, each
+    held to its expected number and to the comm model's
+    (:func:`sharded_drive`); graphed is held to eager
+    (:func:`sharded_hold`: ``torch.equal`` everywhere, counts, collectives,
+    bytes, generator offsets, the graphs a replay launches). Then, for
+    SHARDED_TIMED, requests and epochs timed graphed and eager in turns,
+    each window from a barrier, one epoch of each profiled on party 0 (the
+    host's launch calls), and an epoch window of each with every
+    collective synchronized and timed. Then the wrap operands through
+    ``all_reduce`` and ``all_to_all``. Saves the graphed results and the
+    times, on the host, to ``out_file``."""
+    from cognn_tpu_torch.engine import GasEngine
     from cognn_tpu_torch.harness.datasets import party_plan
     from cognn_tpu_torch.mpc import MpcGasEngine
     from cognn_tpu_torch.utils import distributed
@@ -1754,121 +1789,33 @@ def sharded_party(cell: str, dataset: str, parties: int, rank: int,
     try:
         plan, param = party_plan(dataset, parties,
                                  dense=(cell == DENSE_CELL) or None)
-
-        def engine(cls, variant, aggregation="bcsr"):
-            return cls(plan, param, variant, aggregation=aggregation,
-                       mode="sharded", group=group, device="cuda")
-
-        def analytic(eng, forwards, epochs):
-            """The comm model's calls and bytes of ``forwards`` forwards
-            and ``epochs`` epochs of ``eng``, by collective (those called):
-            a halo all_to_all an aggregation, an all_reduce a weight
-            mean."""
-            mpc = hasattr(eng, "weights_sh")
-            kw = dict(mpc=mpc, limbs=eng.proto.ring.bits // 32 if mpc else 2,
-                      hoist_agg=eng.hoist_agg if mpc else None)
-            base = "unopt" if eng.unopt else "opt"
-            variants = (f"{base}_inference", base)  # a forward, an epoch
-
-            def total(fwd, ep):
-                want = {k: forwards * fwd[k] + epochs * ep[k]
-                        for k in ("all_to_all", "all_reduce")}
-                return {k: v for k, v in want.items() if v}
-
-            return (total(*(comm_model.analytic_rounds_per_epoch(
-                        param, v, **kw) for v in variants)),
-                    total(*(comm_model.analytic_bytes_per_epoch(
-                        plan, param, v, aggregation=eng.aggregation, **kw)
-                        for v in variants)))
-
-        def counted(label, eng, fn, forwards, epochs):
-            spmms = [eng.spmm] if eng.spmm is not None else []
-            group.barrier()
-            torch.cuda.synchronize()
-            reset_counts(spmms)
-            group.reset_counts()
-            result = fn()
-            torch.cuda.synchronize()
-            counts, calls = read_counts(spmms), dict(group.calls)
-            sent = dict(group.bytes)
-            want = {k: forwards * v for k, v in forward_counts(eng).items()}
-            for k, v in epoch_counts(eng).items():
-                want[k] += epochs * v
-            want_calls, want_bytes = analytic(eng, forwards, epochs)
-            if counts != want or calls != want_calls or sent != want_bytes:
-                raise AssertionError(
-                    f"sharded {cell} party {rank} {label}: launches "
-                    f"{counts}, collectives {calls}, bytes {sent}; want "
-                    f"{want}, {want_calls}, {want_bytes} (comm model)")
-            return result, counts, {"calls": calls, "bytes": sent}
-
-        def timed(eng) -> dict:
-            """ms an epoch over SHARDED_EPOCHS_TIMED epochs, then again
-            with each collective bracketed by synchronizations and its time
-            summed."""
-            out = {}
-            for sync in (False, True):
-                group.timed = sync
-                group.barrier()
-                torch.cuda.synchronize()
-                group.reset_counts()
-                t0 = time.perf_counter()
-                eng.run_epochs(SHARDED_EPOCHS_TIMED)
-                torch.cuda.synchronize()
-                out["ms_per_epoch_synced" if sync else "ms_per_epoch"] = (
-                    time.perf_counter() - t0) * 1e3 / SHARDED_EPOCHS_TIMED
-            out["collective_ms_per_epoch"] = (group.seconds * 1e3
-                                              / SHARDED_EPOCHS_TIMED)
-            group.timed = False
-            return out
-
-        def host(tensors):
-            if isinstance(tensors, dict):
-                return {k: v.cpu() for k, v in tensors.items()}
-            return [t.cpu() for t in tensors]
-
         out = {}
-        plain = engine(GasEngine, "opt")
-        (fwd, ms), f_counts, _ = counted("forwards", plain,
-                                         lambda: timed_forwards(plain),
-                                         FORWARDS, 0)
-        metrics, e_counts, comm = counted(
-            "epochs", plain, lambda: plain.run_epochs_scan(EPOCHS_CHECKED),
-            0, EPOCHS_CHECKED)
-        out["plain"] = {"logits": fwd[0].cpu(), "request_ms": ms,
-                        "weights": host(plain.weights),
-                        "metrics": host(metrics),
-                        "forward_counts": f_counts, "epoch_counts": e_counts,
-                        "epoch_comm": comm, **timed(plain)}
-        del plain
-
-        mpc = engine(MpcGasEngine, "opt")
-        metrics, e_counts, comm = counted(
-            "mpc epochs", mpc, lambda: mpc.run_epochs_scan(EPOCHS_CHECKED),
-            0, EPOCHS_CHECKED)
-        weights = host(mpc.reveal_weights())
-        fwd, f_counts, _ = counted("mpc forward", mpc, mpc.forward, 1, 0)
-        out["mpc"] = {"logits": fwd[0].cpu(), "weights": weights,
-                      "metrics": host(metrics), "forward_counts": f_counts,
-                      "epoch_counts": e_counts, "epoch_comm": comm,
-                      **timed(mpc)}
-        del mpc
-
-        unopt = engine(MpcGasEngine, "unopt")
-        metrics, e_counts, _ = counted(
-            "mpc unopt epochs", unopt,
-            lambda: unopt.run_epochs_scan(EPOCHS_CHECKED), 0, EPOCHS_CHECKED)
-        out["unopt"] = {"weights": host(unopt.reveal_weights()),
-                        "metrics": host(metrics), "epoch_counts": e_counts}
-        del unopt
-
-        if plan.dense_adj is not None:
-            dense = engine(MpcGasEngine, "opt_inference", "dense")
-            fwd, f_counts, _ = counted("mpc dense forward", dense,
-                                       dense.forward, 1, 0)
-            out["dense"] = {"logits": fwd[0].cpu(),
-                            "forward_counts": f_counts}
-            del dense
+        for key, mpc, variant, aggregation in SHARDED_CASES:
+            if aggregation == "dense" and plan.dense_adj is None:
+                continue
+            epochs = 0 if variant.endswith("inference") else EPOCHS_CHECKED
+            runs = {}
+            for mode, flag in (("eager", False), ("graphed", None)):
+                eng = (MpcGasEngine if mpc else GasEngine)(
+                    plan, param, variant, aggregation=aggregation,
+                    mode="sharded", group=group, device="cuda",
+                    cuda_graphs=flag)
+                if eng._graphs.enabled != (flag is None):
+                    raise AssertionError(f"sharded {cell} {key} {mode}: "
+                                         f"graphs {eng._graphs.enabled}")
+                runs[mode] = sharded_drive(f"{cell} party {rank} {key} "
+                                           f"{mode}", eng, group, plan,
+                                           param, epochs)
+            sharded_hold(f"sharded {cell} party {rank} {key}", mpc, runs)
+            g = runs["graphed"]
+            out[key] = {k: g[k] for k in (
+                "logits", "weights", "metrics", "forward_counts",
+                "epoch_counts", "epoch_comm", "segments") if k in g}
+            if key in SHARDED_TIMED:
+                out[key]["times"] = sharded_times(
+                    f"{cell} {key}", group, rank,
+                    {m: r["engine"] for m, r in runs.items()}, epochs)
+            del runs, g, eng
 
         for dtype, key in ((torch.int64, ""), (torch.int32, "_i32")):
             x = distributed.wrap_check_operand(rank, parties, dtype).to(
@@ -1879,6 +1826,201 @@ def sharded_party(cell: str, dataset: str, parties: int, rank: int,
         print(f"sharded {cell} party {rank}: done", flush=True)
     finally:
         distributed.destroy_party_group()
+
+
+def sharded_analytic(eng, plan, param, forwards: int, epochs: int):
+    """The comm model's calls and bytes of ``forwards`` forwards and
+    ``epochs`` epochs of the sharded ``eng``, by collective (those called):
+    a halo all_to_all an aggregation, an all_reduce a weight mean."""
+    from cognn_tpu_torch.engine import comm_model
+
+    mpc = hasattr(eng, "weights_sh")
+    kw = dict(mpc=mpc, limbs=eng.proto.ring.bits // 32 if mpc else 2,
+              hoist_agg=eng.hoist_agg if mpc else None)
+    base = "unopt" if eng.unopt else "opt"
+    variants = (f"{base}_inference", base)  # a forward, an epoch
+
+    def total(fwd, ep):
+        want = {k: forwards * fwd[k] + epochs * ep[k]
+                for k in ("all_to_all", "all_reduce")}
+        return {k: v for k, v in want.items() if v}
+
+    return (total(*(comm_model.analytic_rounds_per_epoch(param, v, **kw)
+                    for v in variants)),
+            total(*(comm_model.analytic_bytes_per_epoch(
+                plan, param, v, aggregation=eng.aggregation, **kw)
+                for v in variants)))
+
+
+def sharded_drive(label: str, eng, group, plan, param, epochs: int) -> dict:
+    """One engine of :func:`sharded_party`: FORWARDS requests (each timed,
+    its logits kept), ``epochs`` epochs through ``run_epochs_scan`` and one
+    more request, each part between a barrier and a synchronize with the
+    kernel and collective counts set to 0 just before and read just after,
+    held to :func:`forward_counts` / :func:`epoch_counts` and to the comm
+    model (:func:`sharded_analytic`); the generator's offset after every
+    call (secret-shared). Returns the results on the host."""
+    mpc = hasattr(eng, "weights_sh")
+    spmms = [eng.spmm] if eng.spmm is not None else []
+    offsets = []
+
+    def offset():
+        if mpc:
+            offsets.append(eng._gen.get_offset())
+
+    def counted(part, fn, forwards, n_epochs):
+        group.barrier()
+        torch.cuda.synchronize()
+        reset_counts(spmms)
+        group.reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        counts, calls = read_counts(spmms), dict(group.calls)
+        sent = dict(group.bytes)
+        want = {k: forwards * v for k, v in forward_counts(eng).items()}
+        for k, v in epoch_counts(eng).items():
+            want[k] += n_epochs * v
+        want_calls, want_bytes = sharded_analytic(eng, plan, param, forwards,
+                                                  n_epochs)
+        if counts != want or calls != want_calls or sent != want_bytes:
+            raise AssertionError(
+                f"sharded {label} {part}: launches {counts}, collectives "
+                f"{calls}, bytes {sent}; want {want}, {want_calls}, "
+                f"{want_bytes} (comm model)")
+        return result, counts, {"calls": calls, "bytes": sent}
+
+    def requests(n):
+        zs, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            zs.append(eng.forward()[0])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            offset()
+        return zs, ms
+
+    (zs, ms), f_counts, f_comm = counted("requests",
+                                         lambda: requests(FORWARDS),
+                                         FORWARDS, 0)
+    run = {"engine": eng, "request_ms": ms, "forward_counts": f_counts,
+           "forward_comm": f_comm}
+    if epochs:
+        metrics, e_counts, e_comm = counted(
+            "epochs", lambda: eng.run_epochs_scan(epochs), 0, epochs)
+        offset()
+        (z_after, _), _, _ = counted("request after the epochs",
+                                     lambda: requests(1), 1, 0)
+        zs += z_after
+        run.update(metrics={k: v.cpu() for k, v in metrics.items()},
+                   epoch_counts=e_counts, epoch_comm=e_comm)
+    run["z"] = [z.cpu() for z in zs]
+    # the stacked references' logits: before the epochs plaintext, after
+    # them secret-shared
+    run["logits"] = run["z"][-1 if mpc else 0]
+    run["weights"] = [w.cpu() for w in (eng.reveal_weights() if mpc
+                                        else eng.weights)]
+    if mpc:
+        run["shares"] = [w.cpu() for w in eng.weights_sh]
+    run["offsets"] = offsets
+    run["segments"] = {step: eng._graphs.segments(step)
+                       for step in ("forward", "epoch")}
+    return run
+
+
+def sharded_hold(label: str, mpc: bool, runs: dict) -> None:
+    """Graphed against eager (:func:`sharded_drive`'s results): every
+    request's logits, every epoch's metrics, the weights (revealed, and the
+    share bits) ``torch.equal``; launch counts, collective calls and bytes
+    of each part equal; the generator's offsets equal after every call and
+    growing. The graphed engine's steps split into one graph more than
+    their collectives, the eager one's into none."""
+    g, e = runs["graphed"], runs["eager"]
+    tensors = {"logits": (g["z"], e["z"]),
+               "weights": (g["weights"], e["weights"])}
+    if "metrics" in g:
+        tensors["metrics"] = (list(g["metrics"].values()),
+                              list(e["metrics"].values()))
+    if mpc:
+        tensors["shares"] = (g["shares"], e["shares"])
+    for what, (got, want) in tensors.items():
+        for a, b in zip(got, want, strict=True):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"{label}: graphed {what} differ from eager by "
+                    f"{(a.double() - b.double()).abs().max().item()!r}")
+    for k in ("forward_counts", "forward_comm", "epoch_counts",
+              "epoch_comm"):
+        if g.get(k) != e.get(k):
+            raise AssertionError(f"{label}: {k} graphed {g.get(k)}, eager "
+                                 f"{e.get(k)}")
+    got = g["offsets"]
+    if got != e["offsets"] or any(b <= a for a, b in zip(got, got[1:])):
+        raise AssertionError(f"{label}: generator offsets graphed {got}, "
+                             f"eager {e['offsets']}")
+    want = {"forward": sum(g["forward_comm"]["calls"].values())
+            // FORWARDS + 1}
+    if "epoch_comm" in g:
+        want["epoch"] = (sum(g["epoch_comm"]["calls"].values())
+                         // EPOCHS_CHECKED + 1)
+    if any(g["segments"][k] != n for k, n in want.items()) \
+            or any(e["segments"].values()):
+        raise AssertionError(f"{label}: graphs a step graphed "
+                             f"{g['segments']} (want {want}), eager "
+                             f"{e['segments']}")
+    print(f"{label}: graphed == eager (torch.equal: logits of "
+          f"{len(g['z'])} requests, metrics, weights"
+          f"{', share bits' if mpc else ''}); launches, collectives and "
+          f"bytes as eager's and the comm model's; generator offsets "
+          f"{got} as eager's; graphs a replay {g['segments']}", flush=True)
+
+
+def sharded_times(label: str, group, rank: int, engines: dict,
+                  epochs: int) -> dict:
+    """ms a request over SHARDED_CALLS_TIMED and, with ``epochs``, ms an
+    epoch over SHARDED_EPOCHS_TIMED (``run_epochs_scan``), graphed and
+    eager in turns, each window from a barrier to a synchronize; one epoch
+    (or request) of each profiled on party 0 (the others run it alike), its
+    host launch calls; then an epoch window of each with every collective
+    bracketed by synchronizations, the collectives' ms an epoch."""
+    def window(eng, what):
+        group.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if what == "request":
+            for _ in range(SHARDED_CALLS_TIMED):
+                eng.forward()
+        else:
+            eng.run_epochs_scan(SHARDED_EPOCHS_TIMED)
+        torch.cuda.synchronize()
+        n = SHARDED_CALLS_TIMED if what == "request" else SHARDED_EPOCHS_TIMED
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    out = {}
+    for what in ("request", "epoch") if epochs else ("request",):
+        out[what] = {"eager": [], "graphed": []}
+        for mode in ("eager", "graphed", "graphed", "eager"):
+            out[what][mode].append(window(engines[mode], what))
+    step = "epoch" if epochs else "request"
+    for mode, eng in engines.items():
+        fn = eng.run_epoch if epochs else eng.forward
+        group.barrier()
+        if rank == 0:
+            prof = profile_phase(f"sharded {label} {mode} {step}", fn)
+            out[f"{mode} host_calls"] = prof["host_calls"]
+        else:
+            for _ in range(2):  # as profile_phase calls it
+                fn()
+                torch.cuda.synchronize()
+    if epochs:
+        for mode, eng in engines.items():
+            group.timed = True
+            group.reset_counts()
+            out[f"{mode} synced"] = window(eng, "epoch")
+            out[f"{mode} collective"] = (group.seconds * 1e3
+                                         / SHARDED_EPOCHS_TIMED)
+            group.timed = False
+    return out
 
 
 def sharded_auto(cell: str, plan, param) -> None:
@@ -1980,14 +2122,16 @@ def launch_parties(cell: str, dataset: str, parties: int, backend: str,
     print(f"sharded {cell} {backend}: {parties} party processes in "
           f"{wall:.1f} s; " + "; ".join(
               line for f in logs for line in f.read_text().splitlines()
-              if "collectives over" in line), flush=True)
+              if "collectives over" in line or "graphed ==" in line),
+          flush=True)
     return [torch.load(o, weights_only=False) for o in outs]
 
 
 def hold_sharded(cell: str, backend: str, ref: dict, results) -> None:
-    """The party processes' results, gathered over the parties, against the
-    stacked engines' (``ref``): plaintext logits within LOGITS_TOL_OF_MAX
-    and weights within TRAIN_WEIGHTS_TOL_OF_MAX of the largest, losses
+    """The party processes' results (their graphed engines'), gathered over
+    the parties, against the stacked engines' (``ref``): plaintext logits
+    within LOGITS_TOL_OF_MAX and weights within TRAIN_WEIGHTS_TOL_OF_MAX of
+    the largest, losses
     within SHARDED_LOSS_TOL and the other metrics equal; every
     secret-shared revealed weight, logit and metric ``torch.equal``; the
     collectives' int64 sums and exchanges equal numpy uint64's. Prints each
@@ -2056,17 +2200,33 @@ def hold_sharded(cell: str, backend: str, ref: dict, results) -> None:
           f"the comm model's", flush=True)
     cards = torch.cuda.device_count()
     for r, res in enumerate(results):
-        p, m = res["plain"], res["mpc"]
         where = f"party on cuda:{r % cards}" + (
             "" if cards >= world else
             f", {world} parties time-sliced on {cards} card(s)")
-        print(f"sharded {cell} {backend} party {r}: plaintext request ms "
-              f"{p['request_ms']!r}; ms an epoch plaintext "
-              f"{p['ms_per_epoch']!r} (synced {p['ms_per_epoch_synced']!r}, "
-              f"collectives {p['collective_ms_per_epoch']!r}), secret-shared "
-              f"{m['ms_per_epoch']!r} (synced {m['ms_per_epoch_synced']!r}, "
-              f"collectives {m['collective_ms_per_epoch']!r}) over "
-              f"{SHARDED_EPOCHS_TIMED} epochs; {where}", flush=True)
+        for key in SHARDED_TIMED:
+            if key not in res:
+                continue
+            t = res[key]["times"]
+            line = (f"sharded {cell} {backend} party {r} {key}: ms a request "
+                    f"over {SHARDED_CALLS_TIMED} (in turns) graphed "
+                    f"{t['request']['graphed']!r} eager "
+                    f"{t['request']['eager']!r}")
+            if "epoch" in t:
+                line += (f"; ms an epoch over {SHARDED_EPOCHS_TIMED} graphed "
+                         f"{t['epoch']['graphed']!r} eager "
+                         f"{t['epoch']['eager']!r}; synced graphed "
+                         f"{t['graphed synced']!r} (collectives "
+                         f"{t['graphed collective']!r}) eager "
+                         f"{t['eager synced']!r} (collectives "
+                         f"{t['eager collective']!r})")
+            if "graphed host_calls" in t:
+                line += (f"; host launch calls "
+                         f"{'an epoch' if 'epoch' in t else 'a request'} "
+                         f"graphed "
+                         f"{t['graphed host_calls']} eager "
+                         f"{t['eager host_calls']}")
+            print(f"{line}; graphs a replay {res[key]['segments']}; {where}; "
+                  f"{card_line()}", flush=True)
 
 
 def comm_grid(cell: str, party: dict, ref: dict) -> None:
@@ -2093,8 +2253,9 @@ def comm_grid(cell: str, party: dict, ref: dict) -> None:
 def sharded_phase(cell: str, dataset: str, parties: int, replaces: str,
                   mac_ms: float) -> list:
     """The sharded mode on ``cell``: the ``auto`` decision; P party
-    processes on the card over gloo with host copies (:func:`sharded_party`),
-    held to the stacked engines built here (:func:`hold_sharded`); over
+    processes on the card over gloo with host copies (:func:`sharded_party`:
+    graphed against eager engines in each party), held to the stacked
+    engines built here (:func:`hold_sharded`); over
     NCCL as well where the host has a card for each party, else said so;
     then, alone on the card, the CSR kernels at the per-party shape (party
     0's V src x P·V dst CSR, D = 16 and C) against their plain versions
@@ -2605,20 +2766,66 @@ def timed_run(eng, sweeps: int, **kw) -> float:
     return (time.perf_counter() - t0) * 1e3 / sweeps
 
 
+def analytics_pair(label: str, engines: dict, sweeps: int,
+                   want: int) -> dict:
+    """The graphed engine (the default: a CUDA graph a sweep) against the
+    eager one (``cuda_graphs=False``), built alike: ``run(sweeps)`` of
+    each with the kernel counts set to 0 just before and read just after
+    (``want`` CSR SpMMs, f32 or ring, and nothing else), the values
+    ``torch.equal``; then ms a sweep in turns (eager, graphed,
+    graphed, eager) and one profiled run of each (busy, idle share, the
+    host's launch calls a sweep). Returns the graphed values, counts, ms
+    and profiles."""
+    spmms = [eng.spmm for eng in engines.values() if eng.spmm is not None]
+    out = {"counts": {}, "ms": {"eager": [], "graphed": []}, "prof": {}}
+    for mode, eng in engines.items():
+        if eng._graphs.enabled != (mode == "graphed"):
+            raise AssertionError(f"analytics {label} {mode}: graphs "
+                                 f"{eng._graphs.enabled}")
+        reset_counts(spmms)
+        out[mode] = eng.run(sweeps)
+        torch.cuda.synchronize()
+        counts = out["counts"][mode] = read_counts(spmms)
+        if sum(counts.values()) != want or (want and not any(
+                counts[k] == want for k in ("spmm_csr_f32", "spmm_csr_i64",
+                                            "spmm_csr_i32"))):
+            raise AssertionError(f"analytics {label} {mode}: launches "
+                                 f"{counts}, want {want} CSR SpMMs")
+    if not torch.equal(out["graphed"], out["eager"]):
+        err = (out["graphed"] - out["eager"]).abs().max().item()
+        raise AssertionError(f"analytics {label}: graphed differs from eager "
+                             f"by {err!r}")
+    for mode in ("eager", "graphed", "graphed", "eager"):
+        out["ms"][mode].append(timed_run(engines[mode], sweeps))
+    for mode, eng in engines.items():
+        prof = profile_phase(f"analytics {label} {mode} run({sweeps})",
+                             lambda: eng.run(sweeps))
+        out["prof"][mode] = {
+            "busy_ms_a_sweep": prof["busy_ms"] / sweeps,
+            "idle_share": prof["idle_share"],
+            "host_calls_a_sweep": {k: v / sweeps
+                                   for k, v in prof["host_calls"].items()}}
+    return out
+
+
 def analytics_phase(cell: str, dataset: str, parties: int,
                     mac_ms: float) -> dict:
     """The vertex analytics on ``cell``'s plan (sssp's edge weights uniform
     in [0.5, 2) from SSSP_WEIGHT_SEED), plaintext (``AnalyticsEngine``)
     and secret-shared (``SSAnalyticsEngine``): pagerank PAGERANK_SWEEPS
     sweeps, bfs, sssp and cc (source: party 0's first vertex) to their
-    fixpoint. Each held against the same engine on the CPU (the MIN
-    programs and every secret-shared value ``torch.equal``, pagerank
-    PAGERANK_CPU_RTOL), the plaintext ones against a float64 host
+    fixpoint. Each engine on the card is built twice, graphed (the default:
+    a sweep one CUDA graph replay) and eager, and held to itself
+    (:func:`analytics_pair`: ``torch.equal``, one f32 CSR SpMM (plaintext)
+    or one ring SpMM (secret-shared) a pagerank sweep in both, ms a sweep
+    and the host's launch calls a sweep of each); the secret-shared shares
+    and generator offsets equal too, and a graphed run after one with
+    another seed equal to the eager run; pagerank's ``tol`` stop
+    (PAGERANK_TOL) graphed == eager. Each held against the same engine on
+    the CPU (the MIN programs and every secret-shared value ``torch.equal``,
+    pagerank PAGERANK_CPU_RTOL), the plaintext ones against a float64 host
     reference, the secret-shared ones against the plaintext ones at the
-    tests' tolerances (SS_ANALYTICS_TOL). pagerank's kernel counts set to 0
-    just before a run and read just after: one f32 CSR SpMM (plaintext) or
-    one ring SpMM (secret-shared) a sweep. Prints ms a sweep and the idle
-    share of one profiled sweep of each. Returns the pagerank SpMMs'
+    tests' tolerances (SS_ANALYTICS_TOL). Returns the pagerank SpMMs'
     numbers at D = 1 for the kernels line."""
     from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
     from cognn_tpu_torch.engine import analytics
@@ -2641,20 +2848,23 @@ def analytics_phase(cell: str, dataset: str, parties: int,
                 "cc": analytics.cc_program()}
     out = {}
     for name, prog in programs.items():
-        card = analytics.AnalyticsEngine(plan, prog, device="cuda")
+        engines = {mode: analytics.AnalyticsEngine(
+            plan, prog, device="cuda", cuda_graphs=None if mode == "graphed"
+            else False) for mode in ("graphed", "eager")}
+        card = engines["graphed"]
         cpu = analytics.AnalyticsEngine(plan, prog, device="cpu")
         h0 = torch.as_tensor(prog.init(plan, {}), device="cuda")
         sweeps = (PAGERANK_SWEEPS if name == "pagerank"
                   else sweeps_to_fixpoint(card.iteration, h0))
-        spmms = [card.spmm] if card.spmm is not None else []
-        reset_counts(spmms)
-        h = card.run(sweeps)
-        torch.cuda.synchronize()
-        counts = read_counts(spmms)
         want = PAGERANK_SWEEPS if name == "pagerank" else 0
-        if counts["spmm_csr_f32"] != want or sum(counts.values()) != want:
-            raise AssertionError(f"analytics {cell} {name}: launches "
-                                 f"{counts}, want {want} f32 SpMMs")
+        pair = analytics_pair(f"{cell} {name}", engines, sweeps, want)
+        h, counts = pair["graphed"], pair["counts"]["graphed"]
+        if name == "pagerank":
+            tol = {mode: eng.run(MAX_SWEEPS, tol=PAGERANK_TOL)
+                   for mode, eng in engines.items()}
+            if not torch.equal(tol["graphed"], tol["eager"]):
+                raise AssertionError(f"analytics {cell} pagerank: tol stop "
+                                     "graphed differs from eager")
         h_cpu = cpu.run(sweeps)
         ref = host_reference(plan, name, edges, sweeps, n, source)
         got = h.cpu().reshape(-1).double().numpy()
@@ -2669,16 +2879,16 @@ def analytics_phase(cell: str, dataset: str, parties: int,
             np.testing.assert_allclose(
                 np.minimum(got, 1e30), np.minimum(ref, 1e30),
                 rtol=SSSP_HOST_RTOL if name == "sssp" else 0)
-        ms = timed_run(card, sweeps)
-        prof = profile_phase(f"analytics {cell} {name} sweep",
-                             lambda: card.iteration(h))
 
         # secret-shared: the same sweeps (the MIN programs' own fixpoint)
         proto = Protocol(FixedPointSpec(frac_bits=SS_PAGERANK_FRAC_BITS)
                          if name == "pagerank" else FixedPointSpec())
         kw = dict(proto=proto, num_vertices=n,
                   source=None if name in ("pagerank", "cc") else source)
-        ss = SSAnalyticsEngine(plan, name, device="cuda", **kw)
+        ss_engines = {mode: SSAnalyticsEngine(
+            plan, name, device="cuda", cuda_graphs=None if mode == "graphed"
+            else False, **kw) for mode in ("graphed", "eager")}
+        ss = ss_engines["graphed"]
         ss_cpu = SSAnalyticsEngine(plan, name, device="cpu", **kw)
         gen = torch.Generator(device="cuda").manual_seed(1)
         sh0 = proto.share(gen, torch.as_tensor(ss.init_values(),
@@ -2686,15 +2896,24 @@ def analytics_phase(cell: str, dataset: str, parties: int,
         ss_sweeps = (PAGERANK_SWEEPS if name == "pagerank" else
                      sweeps_to_fixpoint(lambda x: ss.iteration(gen, x), sh0,
                                         proto.reveal))
-        spmms = [ss.spmm] if ss.spmm is not None else []
-        reset_counts(spmms)
-        z = ss.run(ss_sweeps)
-        torch.cuda.synchronize()
-        ss_counts = read_counts(spmms)
-        if ss_counts["spmm_csr_i64"] != want or \
-                sum(ss_counts.values()) != want:
-            raise AssertionError(f"analytics {cell} {name} mpc: launches "
-                                 f"{ss_counts}, want {want} ring SpMMs")
+        ss_pair = analytics_pair(f"{cell} {name} mpc", ss_engines, ss_sweeps,
+                                 want)
+        z, ss_counts = ss_pair["graphed"], ss_pair["counts"]["graphed"]
+        # the last timed or profiled run of each had seed 0: its shares
+        # and generator offset; then a graphed run after another seed
+        shares = {m: e._h_sh.clone() for m, e in ss_engines.items()}
+        offsets = {m: e._gen.get_offset() for m, e in ss_engines.items()}
+        ss.run(ss_sweeps, seed=SS_OTHER_SEED)
+        again = ss.run(ss_sweeps)
+        if not (torch.equal(shares["graphed"], shares["eager"])
+                and offsets["graphed"] == offsets["eager"]
+                and torch.equal(ss._h_sh, shares["eager"])
+                and torch.equal(again, z)
+                and ss._gen.get_offset() == offsets["eager"]):
+            raise AssertionError(f"analytics {cell} {name} mpc: graphed "
+                                 f"shares or generator offsets ({offsets}, "
+                                 f"after a reseed {ss._gen.get_offset()}) "
+                                 "differ from eager")
         if not torch.equal(z.cpu(), ss_cpu.run(ss_sweeps)):
             raise AssertionError(f"analytics {cell} {name} mpc: card and "
                                  "CPU reveal different values")
@@ -2709,21 +2928,29 @@ def analytics_phase(cell: str, dataset: str, parties: int,
             raise AssertionError(f"analytics {cell} {name} mpc: {ss_err} "
                                  f"from plaintext, tolerance "
                                  f"{SS_ANALYTICS_TOL[name]}")
-        ss_ms = timed_run(ss, ss_sweeps)
-        sh = proto.share(gen, h.clamp(max=SS_INF) if name != "pagerank"
-                         else h)
-        ss_prof = profile_phase(f"analytics {cell} {name} mpc sweep",
-                                lambda: ss.iteration(gen, sh))
         rel = float((np.abs(zc - hc) / np.maximum(np.abs(hc), 1e-30)).max())
+        tol_note = "; the tol stop too" if name == "pagerank" else ""
         print(f"analytics {cell} {name}: {sweeps} sweeps plaintext, "
               f"{ss_sweeps} secret-shared; launches {counts} / {ss_counts}; "
-              f"card == CPU{' (rtol ' + str(PAGERANK_CPU_RTOL) + ')' if name == 'pagerank' else ''}; "
+              f"graphed == eager (torch.equal{tol_note}; "
+              f"secret-shared shares and generator offsets, and after a "
+              f"reseed); card == CPU{' (rtol ' + str(PAGERANK_CPU_RTOL) + ')' if name == 'pagerank' else ''}; "
               f"max|h - float64|={float(np.abs(np.minimum(got, 1e30) - np.minimum(ref, 1e30)).max())!r}; "
               f"secret-shared within {ss_err!r} of plaintext (tol "
-              f"{SS_ANALYTICS_TOL[name]}, max relative {rel!r}); ms a sweep "
-              f"{ms!r} plaintext, {ss_ms!r} secret-shared; idle share "
-              f"{prof['idle_share']!r} / {ss_prof['idle_share']!r}; "
-              f"{card_line()}", flush=True)
+              f"{SS_ANALYTICS_TOL[name]}, max relative {rel!r}); {card_line()}",
+              flush=True)
+        for label, pr in (("plaintext", pair), ("secret-shared", ss_pair)):
+            print(f"analytics {cell} {name} {label}: ms a sweep (in turns) "
+                  f"graphed {pr['ms']['graphed']!r} eager "
+                  f"{pr['ms']['eager']!r}; a profiled run: busy ms a sweep "
+                  f"graphed {pr['prof']['graphed']['busy_ms_a_sweep']!r} "
+                  f"eager {pr['prof']['eager']['busy_ms_a_sweep']!r}, idle "
+                  f"share {pr['prof']['graphed']['idle_share']!r} / "
+                  f"{pr['prof']['eager']['idle_share']!r}, host launch calls "
+                  f"a sweep graphed "
+                  f"{pr['prof']['graphed']['host_calls_a_sweep']} eager "
+                  f"{pr['prof']['eager']['host_calls_a_sweep']}; "
+                  f"{card_line()}", flush=True)
         out[name] = {"counts": counts, "ss_counts": ss_counts,
                      "spmm": card.spmm, "ss_spmm": ss.spmm}
     k = out["pagerank"]["spmm"]
@@ -3515,24 +3742,11 @@ def tools_phase() -> None:
         raise AssertionError("analytics example: BFS differs")
 
 
-def main(argv) -> None:
-    if not torch.cuda.is_available():
-        sys.exit("chip_smoke: torch sees no CUDA device; this script runs "
-                 "on a GPU")
-    if argv[:1] == ["--sharded-party"]:
-        cell, dataset, parties, rank, port, backend, out = argv[1:]
-        sharded_party(cell, dataset, int(parties), int(rank), int(port),
-                      backend, out)
-        return
-    if argv:
-        sys.exit(f"chip_smoke: unknown arguments {argv} (it takes none)")
-    from cognn_tpu_torch.engine import GasEngine
-    from cognn_tpu_torch.harness.datasets import party_plan
-    from cognn_tpu_torch.mpc import MpcGasEngine
+def prologue() -> float:
+    """The card's name and power limit, the kernels built (one compiler a
+    source, all at once), and the integer multiply rate; returns the time
+    of one 64-bit multiply-add in ms."""
     from cognn_tpu_torch.ops import _build
-    from cognn_tpu_torch.ops.intmatmul import ring_matmul, ring_matmul_plain
-    from cognn_tpu_torch.ops.sddmm import Sddmm
-    from cognn_tpu_torch.ops.spmm_merged import SpmmMerged
 
     print(card_line(), flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -3552,6 +3766,36 @@ def main(argv) -> None:
     print(f"integer multiply rate: {IMAD_PER_CLOCK_PER_SM} IMAD/clock/SM x "
           f"{sms} SMs x {clock / 1e6:.0f} MHz = {int_rate!r} /s; one 64-bit "
           f"multiply-add {mac_ms!r} ms", flush=True)
+    return mac_ms
+
+
+def main(argv) -> None:
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch sees no CUDA device; this script runs "
+                 "on a GPU")
+    if argv[:1] == ["--sharded-party"]:
+        cell, dataset, parties, rank, port, backend, out = argv[1:]
+        sharded_party(cell, dataset, int(parties), int(rank), int(port),
+                      backend, out)
+        return
+    if argv == ["--sharded"]:
+        mac_ms = prologue()
+        kernels = []
+        for cell, dataset, parties, replaces, _ in CELLS:
+            kernels += sharded_phase(cell, dataset, parties, replaces, mac_ms)
+        print(json.dumps({"kernels": kernels}), flush=True)
+        return
+    if argv:
+        sys.exit(f"chip_smoke: unknown arguments {argv} (none, or "
+                 "--sharded)")
+    from cognn_tpu_torch.engine import GasEngine
+    from cognn_tpu_torch.harness.datasets import party_plan
+    from cognn_tpu_torch.mpc import MpcGasEngine
+    from cognn_tpu_torch.ops.intmatmul import ring_matmul, ring_matmul_plain
+    from cognn_tpu_torch.ops.sddmm import Sddmm
+    from cognn_tpu_torch.ops.spmm_merged import SpmmMerged
+
+    mac_ms = prologue()
     wrap_check()
     a, b = ring_matmul_operands(RAGGED_MATMUL, np.random.default_rng(3))
     held(f"ring matmul {RAGGED_MATMUL}", ring_matmul(a, b),

@@ -29,6 +29,13 @@ structure:
     so these programs equal JAX's exactly.
 
 ``tol`` stops early when ``max |h' - h|`` (read on the host) is at most it.
+
+On the card a sweep is one replay of a CUDA graph (the JAX package's
+``jax.jit`` of a sweep, ``:75``; :mod:`cognn_tpu_torch.engine.graphs`):
+:meth:`AnalyticsEngine.run` writes each sweep into the values in place, the
+graph's static input, and with ``tol`` the graph also leaves the sweep's
+largest change on the device for the host's read, which stays outside it.
+``cuda_graphs=False`` runs the sweeps eager, as the CPU always does.
 """
 
 from __future__ import annotations
@@ -40,6 +47,11 @@ import numpy as np
 import torch
 
 from cognn_tpu_torch.engine.gas import _build_spmm_stacked, _party_edges
+from cognn_tpu_torch.engine.graphs import (
+    EngineGraphs,
+    kernel_counters,
+    use_graphs,
+)
 from cognn_tpu_torch.engine.plan import DevicePlan
 from cognn_tpu_torch.utils.device import resolve_device
 
@@ -89,10 +101,14 @@ class AnalyticsEngine:
     """Runs a :class:`VertexProgram` over a :class:`DevicePlan` (stacked
     parties) on ``device`` ("cuda" by default; raises when there is no
     card). ``spmm``: the ADD combine's CSR structure (None for MIN
-    programs), whose ``launches`` count its kernel."""
+    programs), whose ``launches`` count its kernel. ``cuda_graphs``: as the
+    GCN engines' (:func:`cognn_tpu_torch.engine.graphs.use_graphs`): by
+    default each sweep of :meth:`run` replays one CUDA graph on the card
+    and runs eager on the CPU; ``True`` raises on the CPU."""
 
     def __init__(self, plan: DevicePlan, program: VertexProgram,
-                 aux: Optional[dict] = None, device="cuda"):
+                 aux: Optional[dict] = None, device="cuda",
+                 cuda_graphs: Optional[bool] = None):
         if program.combine not in ("add", "min"):
             raise ValueError(f"combine {program.combine!r} (add or min)")
         self.device = resolve_device(device)
@@ -110,6 +126,11 @@ class AnalyticsEngine:
             self._src = torch.as_tensor(src, device=dev)
             self._dst = torch.as_tensor(dst, device=dev)
             self._w = torch.as_tensor(w, device=dev)
+        self._graphs = EngineGraphs(use_graphs(cuda_graphs, dev),
+                                    kernel_counters(self.spmm), device=dev)
+        # the values run() sweeps in place: the graphs' static input
+        self._h = torch.empty((plan.num_parties, plan.V), dtype=torch.float32,
+                              device=dev)
 
     def _combine(self, h: torch.Tensor) -> torch.Tensor:
         """[P, V] values -> [P, V] combined updates (identity where a
@@ -134,21 +155,28 @@ class AnalyticsEngine:
         new = prog.apply(h, agg, has, self.aux)
         return torch.where(self._vertex_mask, new, h)
 
+    def _sweep(self, tol: float) -> Optional[torch.Tensor]:
+        """One sweep of the values in place; with ``tol`` > 0 returns its
+        largest change (on the device)."""
+        nh = self.iteration(self._h)
+        change = (nh - self._h).abs().max() if tol > 0.0 else None
+        self._h.copy_(nh)
+        return change
+
     @torch.no_grad()
     def run(self, iters: int, h0=None, tol: float = 0.0) -> torch.Tensor:
         """``iters`` sweeps from the program's initial values (or ``h0``);
         stops after the first whose largest change is at most ``tol``, when
         ``tol`` > 0. Returns the f32 [P, V] values."""
-        h = torch.as_tensor(self.program.init(self.plan, self.aux)
-                            if h0 is None else h0, dtype=torch.float32,
-                            device=self.device)
+        self._h.copy_(torch.as_tensor(
+            self.program.init(self.plan, self.aux) if h0 is None else h0,
+            dtype=torch.float32))
+        step = "sweep tol" if tol > 0.0 else "sweep"
         for _ in range(iters):
-            nh = self.iteration(h)
-            done = tol > 0.0 and float((nh - h).abs().max()) <= tol
-            h = nh
-            if done:
+            change = self._graphs.run(step, lambda: self._sweep(tol))
+            if change is not None and float(change) <= tol:
                 break
-        return h
+        return self._h.clone()
 
 
 # ---------------------------------------------------------------------------

@@ -164,7 +164,9 @@ def engine_epoch_comm(engine, kind: str = "epoch"
     (``kind="epoch"``, :meth:`run_epoch`) or one ``forward()``
     (``kind="forward"``) of a SHARDED engine (plaintext GasEngine or
     MpcGasEngine) in this process: its group's counters are reset, the
-    epoch or forward RUNS, and the counters are read.
+    epoch or forward RUNS, and the counters are read. A graphed engine
+    counts as an eager one: its first call (the warm-up) and every replay
+    run each collective once, and a capture runs none.
     Returns ``{"bytes": {collective: b, ..., "total": b}, "rounds":
     {collective: n, ..., "total": n}}``, ``all_to_all`` and ``all_reduce``
     always present."""

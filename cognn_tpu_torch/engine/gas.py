@@ -51,11 +51,15 @@ receives. Its ``dense`` holds the party's block of ``plan.dense_adj`` as one
 ``torch.matmul`` and the same halo. ``sparse`` ships its mirror rows through
 the same halo.
 
-Stacked on the card on ``bcsr`` or ``dense``, a request and an epoch are each
-one replay of a CUDA graph captured from this code at their first call
+On the card on ``bcsr`` or ``dense``, a request and an epoch are each one
+replay of a CUDA graph captured from this code at their first call
 (:mod:`cognn_tpu_torch.engine.graphs`, the JAX package's ``jit``), and
-``run_epochs_scan(n)`` replays the epoch's graph n times (its ``lax.scan``);
-``cuda_graphs=False`` runs them eager. Sharded mode and ``sparse`` run eager.
+``run_epochs_scan(n)`` replays the epoch's graph n times (its ``lax.scan``).
+Sharded, the step is split at its collectives (:class:`_ShardedComm` calls
+them through the graphs): a replay is its segments' graphs with the halo
+and the weight mean run between them, as the JAX package's ``shard_map``
+runs one program around its collectives. ``cuda_graphs=False`` runs them
+eager; ``sparse`` and the CPU always do.
 """
 
 from __future__ import annotations
@@ -113,20 +117,25 @@ class _Comm:
 
 class _ShardedComm:
     """Sharded-mode collectives: one process a party, its tensors with a
-    local party axis of 1 (``cognn_tpu/engine/gas.py:54-63``)."""
+    local party axis of 1 (``cognn_tpu/engine/gas.py:54-63``). Each goes
+    through the engine's ``graphs`` (:meth:`EngineGraphs.collective`): eager
+    outside a capture, a breakpoint between two graphs in one."""
 
-    def __init__(self, group: PartyGroup):
+    def __init__(self, group: PartyGroup, graphs: EngineGraphs):
         self.group = group
+        self.graphs = graphs
 
     def halo(self, send: torch.Tensor) -> torch.Tensor:
         # send[..., 0, j, :, :] = this party's update rows for party j ->
         # recv[..., 0, i, :, :] = party i's rows for this party: the peer
         # axis leads the exchange (contiguous), then goes back in place
-        return self.group.all_to_all(send.movedim(-3, 0)).movedim(0, -3)
+        return self.graphs.collective(self.group.all_to_all,
+                                      send.movedim(-3, 0)).movedim(0, -3)
 
     def weight_mean(self, w: torch.Tensor) -> torch.Tensor:
         """The mean of the parties' replicas, on every party."""
-        return self.group.all_reduce_sum(w) / self.group.world
+        return (self.graphs.collective(self.group.all_reduce_sum, w)
+                / self.group.world)
 
 
 def engine_mode(mode: str, group, device, plan: DevicePlan):
@@ -463,11 +472,12 @@ class GasEngine:
     the weights ``[1, d_in, d_out]``, the logits ``[1, V, C]``, each
     metric ``[1]``.
 
-    ``cuda_graphs`` (:mod:`cognn_tpu_torch.engine.graphs`): by default a
-    stacked engine on the card on ``bcsr`` or ``dense`` runs each request
-    and each epoch as a replay of a CUDA graph captured from its eager code
-    at the first call; ``False`` runs it eager, ``True`` raises where it
-    cannot capture (the CPU, sharded mode, ``sparse``). The weights are
+    ``cuda_graphs`` (:mod:`cognn_tpu_torch.engine.graphs`): by default an
+    engine on the card on ``bcsr`` or ``dense`` runs each request and each
+    epoch as a replay of CUDA graphs captured from its eager code at the
+    first call (sharded: split at the collectives, which run between the
+    graphs); ``False`` runs it eager, ``True`` raises where it cannot
+    capture (the CPU, ``sparse``). The weights are
     updated in place, the graphs' static inputs; ``weights`` hands out
     copies, and assigning it replaces them and drops the graphs.
     """
@@ -484,7 +494,6 @@ class GasEngine:
             raise ValueError(aggregation)
         self.device, self.rank = engine_mode(mode, group, device, plan)
         self.mode = mode
-        self.comm = _Comm() if group is None else _ShardedComm(group)
         set_split(plan, param.train_ratio, param.val_ratio)
         self.plan = plan
         self.param = param
@@ -505,8 +514,10 @@ class GasEngine:
         self.spmm, self.adj_t = _aggregation_operands(plan, aggregation,
                                                       self.rank, self.device)
         self._graphs = EngineGraphs(
-            use_graphs(cuda_graphs, self.device, self.rank, aggregation),
-            kernel_counters(self.spmm))
+            use_graphs(cuda_graphs, self.device, aggregation),
+            kernel_counters(self.spmm), device=self.device)
+        self.comm = (_Comm() if group is None
+                     else _ShardedComm(group, self._graphs))
         self.x0 = tensors["features"]
         dims = param.layer_dims
         # per-party weight replicas (reference keeps one per party and

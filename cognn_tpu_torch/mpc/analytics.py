@@ -28,6 +28,12 @@ the JAX package's bit for bit although the port groups the edges otherwise.
 "Infinity" is the exact ring value ``SS_INF = 2^20`` (far above any hop
 count, label or path length, below the ring's overflow bound at the
 default fractional bits), so unreached vertices reveal to exactly SS_INF.
+
+On the card a sweep is one replay of a CUDA graph (the JAX package's
+``jax.jit`` of a sweep, ``:164``; :mod:`cognn_tpu_torch.engine.graphs`) on
+the engine's shares in place, its generator registered with the graph;
+``share`` and ``reveal`` run outside it. ``cuda_graphs=False`` runs the
+sweeps eager, as the CPU always does.
 """
 
 from __future__ import annotations
@@ -42,6 +48,11 @@ from cognn_tpu_torch.core.fixedpoint import fp_encode
 from cognn_tpu_torch.core.ring import ring_from_u64
 from cognn_tpu_torch.engine.analytics import flat_edges, global_out_degree
 from cognn_tpu_torch.engine.gas import _build_spmm_stacked
+from cognn_tpu_torch.engine.graphs import (
+    EngineGraphs,
+    kernel_counters,
+    use_graphs,
+)
 from cognn_tpu_torch.engine.plan import DevicePlan
 from cognn_tpu_torch.mpc.protocol import Protocol
 from cognn_tpu_torch.utils.device import resolve_device
@@ -89,13 +100,19 @@ class SSAnalyticsEngine:
     vertices) of pagerank; ``proto``: the protocol (its fixed-point spec
     picks the ring); ``device`` "cuda" by default, raising when there is no
     card. ``spmm``: pagerank's CSR structure (None otherwise), whose
-    ``ring_launches`` / ``ring32_launches`` count its kernel."""
+    ``ring_launches`` / ``ring32_launches`` count its kernel.
+    ``cuda_graphs``: as :class:`cognn_tpu_torch.engine.analytics.
+    AnalyticsEngine`'s (a sweep of :meth:`run` one CUDA graph replay on the
+    card by default, eager on the CPU). The share randomness comes from one
+    ``torch.Generator`` the engine owns, registered with the graph and
+    re-seeded by every :meth:`run`."""
 
     def __init__(self, plan: DevicePlan, name: str, *,
                  source: Optional[Tuple[int, int]] = None,
                  damping: float = 0.85,
                  num_vertices: Optional[int] = None,
-                 proto: Optional[Protocol] = None, device="cuda"):
+                 proto: Optional[Protocol] = None, device="cuda",
+                 cuda_graphs: Optional[bool] = None):
         if name not in ("pagerank", "bfs", "cc", "sssp"):
             raise ValueError(f"unknown program {name!r}")
         if name in ("bfs", "sssp") and source is None:
@@ -129,6 +146,13 @@ class SSAnalyticsEngine:
                 self._one_fp = encode(1.0)
             if name == "sssp":
                 self._w_fp = encode(w)  # [E]
+        self._gen = torch.Generator(device=dev)
+        self._graphs = EngineGraphs(use_graphs(cuda_graphs, dev),
+                                    kernel_counters(self.spmm), (self._gen,),
+                                    dev)
+        # the shares run() sweeps in place: the graph's static input
+        self._h_sh = torch.empty((2, plan.num_parties, plan.V),
+                                 dtype=self.proto.dtype, device=dev)
 
     # ------------------------------------------------------------------
     def init_values(self) -> np.ndarray:
@@ -166,15 +190,18 @@ class SSAnalyticsEngine:
             new = proto.minimum(h_sh, agg)
         return proto.select(self._vertex_mask, new, h_sh)
 
+    def _sweep(self) -> None:
+        """One sweep of the engine's shares in place."""
+        self._h_sh.copy_(self.iteration(self._gen, self._h_sh))
+
     @torch.no_grad()
     def run(self, iters: int, seed: int = 0) -> torch.Tensor:
         """Share the initial values, run ``iters`` sweeps (share randomness
-        from a generator seeded with ``seed``), and return the revealed f32
-        [P, V] values."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        h = self.proto.share(gen, torch.as_tensor(self.init_values(),
-                                                  device=self.device))
+        from the engine's generator, seeded with ``seed``: the same words as
+        a fresh generator's), and return the revealed f32 [P, V] values."""
+        self._gen.manual_seed(seed)
+        self._h_sh.copy_(self.proto.share(self._gen, torch.as_tensor(
+            self.init_values(), device=self.device)))
         for _ in range(iters):
-            h = self.iteration(gen, h)
-        return self.proto.reveal(h)
+            self._graphs.run("sweep", self._sweep)
+        return self.proto.reveal(self._h_sh)

@@ -73,10 +73,11 @@ with both shares side by side, then the same halo. Each process owns its own
 ``torch.Generator``: its shares differ from a stacked engine's, and under
 exact truncation its revealed values do not.
 
-Stacked on the card on ``bcsr`` or ``dense``, requests and epochs replay CUDA
-graphs as the plaintext engine's do (:mod:`cognn_tpu_torch.engine.graphs`),
-with the engine's generator registered with every graph: each replay draws
-fresh share randomness, as an eager call does.
+On the card on ``bcsr`` or ``dense``, requests and epochs replay CUDA graphs
+as the plaintext engine's do (:mod:`cognn_tpu_torch.engine.graphs`; sharded,
+split at the halo and the weight total), with the engine's generator
+registered with every graph: each replay draws fresh share randomness, as
+an eager call does.
 
 The JAX package's TPU workarounds (uint32 limbs, byte planes and their
 exactness guards, ``compile_mode="phase"`` and the unopt phase programs,
@@ -133,12 +134,13 @@ class _MpcComm(_Comm):
 class _MpcShardedComm(_ShardedComm):
     """Sharded-mode exchange of share tensors ``[2, 1, ...]``
     (``cognn_tpu/mpc/engine.py:341-350``): the halo of
-    :class:`_ShardedComm`, the peer axis leading the exchange."""
+    :class:`_ShardedComm`, the peer axis leading the exchange; both
+    collectives through the engine's graphs."""
 
     def weight_total(self, w_sh: torch.Tensor) -> torch.Tensor:
         """The parties' share sum: one all_reduce of the ring's dtype, which
         wraps."""
-        return self.group.all_reduce_sum(w_sh)
+        return self.graphs.collective(self.group.all_reduce_sum, w_sh)
 
 
 def _party_seed(prng_seed: int, rank: int) -> int:
@@ -169,8 +171,9 @@ class MpcGasEngine:
     rank).
 
     ``cuda_graphs``: as :class:`cognn_tpu_torch.engine.gas.GasEngine`'s
-    (requests and epochs replayed as CUDA graphs, stacked on the card on
-    ``bcsr`` or ``dense``), the generator registered with every graph. The
+    (requests and epochs replayed as CUDA graphs on the card on ``bcsr`` or
+    ``dense``, sharded split at the collectives), the generator registered
+    with every graph. The
     weight shares are updated in place; ``weights_sh`` hands out copies,
     and assigning it, or :meth:`install_state`, drops the graphs.
     """
@@ -191,7 +194,6 @@ class MpcGasEngine:
             raise ValueError(aggregation)
         self.device, self.rank = engine_mode(mode, group, device, plan)
         self.mode = mode
-        self.comm = _MpcComm() if group is None else _MpcShardedComm(group)
         set_split(plan, param.train_ratio, param.val_ratio)
         self.plan = plan
         self.param = param
@@ -223,8 +225,10 @@ class MpcGasEngine:
         self._gen.manual_seed(prng_seed if self.rank is None
                               else _party_seed(prng_seed, self.rank))
         self._graphs = EngineGraphs(
-            use_graphs(cuda_graphs, self.device, self.rank, aggregation),
-            kernel_counters(self.spmm), (self._gen,))
+            use_graphs(cuda_graphs, self.device, aggregation),
+            kernel_counters(self.spmm), (self._gen,), self.device)
+        self.comm = (_MpcComm() if group is None
+                     else _MpcShardedComm(group, self._graphs))
 
         # share the pre-normalized features and the Glorot weights (one
         # replica per party, as the reference keeps them)

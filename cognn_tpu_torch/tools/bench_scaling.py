@@ -8,9 +8,11 @@ process a party (:func:`cognn_tpu_torch.utils.distributed.run_parties`),
 over NCCL where there is a card for each party and otherwise over gloo
 through host copies. Each party runs one warm epoch, then ``--epochs``
 timed ones between a barrier and ``torch.cuda.synchronize()``; the epoch
-time is the slowest party's. The single-party run is the baseline:
-speed-up = throughput(P) / throughput(1) on the PARTITIONED graph (fixed
-total work, more parties), ``edge_iters_per_s = epoch_layers * E /
+time is the slowest party's. On the card every engine takes its default and
+replays CUDA graphs (sharded: split at the collectives, which run between
+the graphs), the warm epoch being the capture. The single-party run is the
+baseline: speed-up = throughput(P) / throughput(1) on the PARTITIONED graph
+(fixed total work, more parties), ``edge_iters_per_s = epoch_layers * E /
 epoch_s``.
 
 Where the parties share one card they are time-sliced on it, and the

@@ -125,50 +125,60 @@ class PartyGroup:
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run(self, name: str, x: torch.Tensor, op) -> torch.Tensor:
+    def _run(self, name: str, x: torch.Tensor, op,
+             out: Optional[torch.Tensor] = None,
+             rows: int = 1) -> torch.Tensor:
+        """The collective ``op(send, recv)`` of ``x`` into ``out`` (or a new
+        tensor), ``rows`` times ``x``'s leading axis: counted, timed, and
+        staged through host copies where :attr:`staged`."""
         self._sync()
         t0 = time.perf_counter()
         x = x.contiguous()
-        out = op(x.cpu() if self.staged else x)
+        send = x.cpu() if self.staged else x
+        shape = (rows * send.shape[0], *send.shape[1:])
+        if out is not None and tuple(out.shape) != shape:
+            raise ValueError(f"{name}: out {tuple(out.shape)}, want {shape}")
+        recv = (out if out is not None and not self.staged
+                else send.new_empty(shape))
+        op(send, recv)
         if self.staged:
-            out = out.to(self.device)
+            recv = (recv.to(self.device) if out is None
+                    else out.copy_(recv))
         self._sync()
         if self.timed:
             self.seconds += time.perf_counter() - t0
         self.calls[name] = self.calls.get(name, 0) + 1
         self.bytes[name] = self.bytes.get(name, 0.0) + wire_bytes(
             name, x.numel() * x.element_size(), self.world)
-        return out
+        return recv
 
-    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+    def all_to_all(self, x: torch.Tensor,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """``x [world, ...]``: row j goes to rank j; returns ``[world, ...]``
-        whose row i came from rank i."""
+        (``out`` if given) whose row i came from rank i."""
         if x.shape[0] != self.world:
             raise ValueError(f"all_to_all takes [{self.world}, ...], got "
                              f"{tuple(x.shape)}")
 
-        def op(send):
-            recv = torch.empty_like(send)
+        def op(send, recv):
             dist.all_to_all_single(recv, send)
-            return recv
-        return self._run("all_to_all", x, op)
+        return self._run("all_to_all", x, op, out)
 
-    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+    def all_reduce_sum(self, x: torch.Tensor,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The sum of ``x`` over the ranks (int64 and int32 wrap mod 2^64 and
-        2^32), on every rank; ``x`` is left as it was."""
-        def op(t):
-            t = t.clone()
-            dist.all_reduce(t, op=dist.ReduceOp.SUM)
-            return t
-        return self._run("all_reduce", x, op)
+        2^32), on every rank, in ``out`` if given; ``x`` is left as it
+        was."""
+        def op(send, recv):
+            recv.copy_(send)
+            dist.all_reduce(recv, op=dist.ReduceOp.SUM)
+        return self._run("all_reduce", x, op, out)
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along axis 0 in rank order."""
-        def op(t):
-            parts = [torch.empty_like(t) for _ in range(self.world)]
-            dist.all_gather(parts, t)
-            return torch.cat(parts)
-        return self._run("all_gather", x, op)
+        def op(send, recv):
+            dist.all_gather(list(recv.chunk(self.world)), send)
+        return self._run("all_gather", x, op, rows=self.world)
 
     def barrier(self) -> None:
         if self.backend == "nccl":
@@ -192,9 +202,11 @@ def init_party_group(rank: int, world: int, coordinator: str,
     backend = backend or choose_backend(world, dev)
     if backend not in ("nccl", "gloo"):
         raise ValueError(f"backend {backend!r} (nccl or gloo)")
-    if backend == "nccl":
-        if dev.type != "cuda":
-            raise ValueError("nccl needs a CUDA device")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("nccl needs a CUDA device")
+    if dev.type == "cuda":
+        # the party's card is the current one: a bare synchronize, a new
+        # stream or tensor of this process land on it
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, init_method=f"tcp://{coordinator}", rank=rank,

@@ -1,9 +1,9 @@
 """The stacked engines' CUDA graphs (``cognn_tpu_torch/engine/graphs.py``),
 on the CPU, where the engines run eager.
 
-Checked here: where an engine may capture (by default only stacked on the
-card on ``bcsr`` or ``dense``; ``cuda_graphs=True`` raises on the CPU, in
-sharded mode and on ``sparse``), and the eager code the graphs are captured
+Checked here: where an engine may capture (by default on the card on
+``bcsr`` or ``dense``, stacked or sharded; ``cuda_graphs=True`` raises on
+the CPU and on ``sparse``), and the eager code the graphs are captured
 from, which now updates the weights in place: ``run_epochs_scan(n)`` equals
 n ``run_epoch`` calls of an engine built with the same seeds, weights
 assigned between calls and ``install_state`` take effect on the next call,
@@ -81,17 +81,19 @@ def assert_equal(a, b):
 
 
 def test_default_captures_only_stacked_on_the_card():
+    """On the card every engine but ``sparse`` captures, stacked or sharded
+    alike (the rule no longer reads the rank); the CPU and ``sparse``
+    refuse ``True``."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    for agg in ("bcsr", "dense"):
-        assert use_graphs(None, cuda, None, agg)
-        assert use_graphs(True, cuda, None, agg)
-        assert not use_graphs(False, cuda, None, agg)
-    for device, rank, agg in ((cpu, None, "bcsr"), (cuda, 1, "bcsr"),
-                              (cuda, None, "sparse")):
-        assert not use_graphs(None, device, rank, agg)
-        assert not use_graphs(False, device, rank, agg)
+    for agg in ("bcsr", "dense", None):
+        assert use_graphs(None, cuda, agg)
+        assert use_graphs(True, cuda, agg)
+        assert not use_graphs(False, cuda, agg)
+    for device, agg in ((cpu, "bcsr"), (cpu, None), (cuda, "sparse")):
+        assert not use_graphs(None, device, agg)
+        assert not use_graphs(False, device, agg)
         with pytest.raises(ValueError, match="cuda_graphs=True"):
-            use_graphs(True, device, rank, agg)
+            use_graphs(True, device, agg)
 
 
 @pytest.mark.parametrize("mpc", [False, True], ids=["plain", "mpc"])
@@ -100,8 +102,9 @@ def test_cuda_graphs_true_raises_where_the_engine_runs_eager(mpc):
         build(mpc, cuda_graphs=True)
     with pytest.raises(ValueError, match="sparse backend"):
         build(mpc, aggregation="sparse", cuda_graphs=True)
+    # sharded, only the party's device refuses now
     party = SimpleNamespace(world=P, rank=0, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="sharded mode"):
+    with pytest.raises(ValueError, match="on the CPU"):
         build(mpc, mode="sharded", group=party, cuda_graphs=True)
     for flag in (None, False):
         assert not build(mpc, cuda_graphs=flag)._graphs.enabled
