@@ -3258,6 +3258,7 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
         if not torch.equal(kept, copy):
             raise AssertionError(f"{name}: a result handed out earlier "
                                  "changed")
+    capture = capture_s(g_eng)
     epoch_ms = min(ms["epoch"]["graphed"])
     print(f"{name}: graphed == eager (torch.equal: {equal}; plaintext "
           f"within {LOGITS_TOL_OF_MAX} x max): logits of {FORWARDS + 1} "
@@ -3285,8 +3286,39 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
           f"{prof['eager']['host_calls']}; peak device memory (allocated, "
           f"reserved) over the build and the checked calls graphed "
           f"{graphed['peak']} B eager {eager['peak']} B; the graphs' pool "
-          f"{pool_bytes or 'not measured'} B; capture s "
-          f"{g_eng._graphs.capture_s}; {card_line()}", flush=True)
+          f"{pool_bytes or 'not measured'} B; capture s {capture} (the "
+          f"tracer's graphs.capture span, captured again with the tracer "
+          f"on); {card_line()}", flush=True)
+
+
+def capture_s(engine) -> dict:
+    """Seconds of a capture of the engine's forward and epoch, read from
+    the tracer's ``graphs.capture`` span: its graphs dropped and each step
+    captured again with the tracer on, after the checks (an epoch moves its
+    weights; the graphs timed before hold no phase boundaries). Then one
+    replay of each: its phase table, read from the stamp kernel's slots,
+    tiles the replay (``epoch_phases_us``, ``forward_phases_us``)."""
+    from cognn_tpu_torch.utils.logging_utils import (collect, reset,
+                                                     snapshot, tracing)
+
+    out = {}
+    for step, call in (("forward", engine.forward),
+                       ("epoch", engine.run_epoch)):
+        engine._graphs.clear()
+        with tracing():
+            reset()
+            call()
+            out[step] = snapshot()["spans"]["graphs.capture"]["s"]
+            call()  # a replay
+            torch.cuda.synchronize()
+            units = collect()
+            reset()
+        unit = units[-1]
+        if unit["step"] != step or unit["total_ns"] <= 0 \
+                or sum(unit["ns"].values()) != unit["total_ns"]:
+            raise AssertionError(f"{step}: phase table {unit}")
+        out[f"{step}_phases_us"] = {k: v / 1e3 for k, v in unit["ns"].items()}
+    return out
 
 
 def graph_phase(cell: str, plan, param, n_edges: int) -> None:

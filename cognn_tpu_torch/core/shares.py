@@ -14,22 +14,27 @@ import numpy as np
 import torch
 
 from cognn_tpu_torch.core.ring import RING64, RingSpec
+from cognn_tpu_torch.utils.logging_utils import phase
 
 
 def random_words(gen: torch.Generator, shape,
                  dtype: torch.dtype = torch.int64) -> torch.Tensor:
     """Uniform words over all 2^64 (int64) or 2^32 (int32) values on
     ``gen``'s device. An int64 word is two 32-bit draws, ``hi * 2^32 + lo``
-    with hi signed, so nothing overflows."""
+    with hi signed, so nothing overflows. The draws are the tracer's
+    ``prng`` phase; the words' assembly takes the caller's."""
     kw = dict(device=gen.device, generator=gen)
     if dtype == torch.int32:
-        return torch.randint(-(1 << 31), 1 << 31, tuple(shape),
-                             dtype=torch.int32, **kw)
+        with phase("prng"):
+            return torch.randint(-(1 << 31), 1 << 31, tuple(shape),
+                                 dtype=torch.int32, **kw)
     if dtype != torch.int64:
         raise TypeError(f"ring words are int64 or int32, got {dtype}")
-    hi = torch.randint(-(1 << 31), 1 << 31, tuple(shape), dtype=torch.int64,
-                       **kw)
-    lo = torch.randint(0, 1 << 32, tuple(shape), dtype=torch.int64, **kw)
+    with phase("prng"):
+        hi = torch.randint(-(1 << 31), 1 << 31, tuple(shape),
+                           dtype=torch.int64, **kw)
+        lo = torch.randint(0, 1 << 32, tuple(shape), dtype=torch.int64,
+                           **kw)
     return hi * (1 << 32) + lo
 
 

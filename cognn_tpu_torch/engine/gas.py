@@ -87,6 +87,7 @@ from cognn_tpu_torch.ops.spmm import Spmm
 from cognn_tpu_torch.utils.device import resolve_device
 from cognn_tpu_torch.utils.distributed import PartyGroup
 from cognn_tpu_torch.utils.glibc_rand import glorot_init
+from cognn_tpu_torch.utils.logging_utils import phase, span
 
 
 def norm0_host(deg: np.ndarray) -> np.ndarray:
@@ -213,52 +214,57 @@ def gcn_metrics(arr: _PlanArrays,
                 prob: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-party loss, accuracies and border count of ``prob [P, V, C]``:
     the plaintext metric definitions, which the secret-shared engine uses on
-    its revealed prediction too."""
-    valid = arr.vertex_mask
-    train = arr.train_mask
-    test = valid & ~arr.train_mask & ~arr.val_mask
-    border = arr.border
+    its revealed prediction too; the tracer's ``metrics`` phase."""
+    with phase("metrics"):
+        valid = arr.vertex_mask
+        train = arr.train_mask
+        test = valid & ~arr.train_mask & ~arr.val_mask
+        border = arr.border
 
-    y_hot = torch.nn.functional.one_hot(arr.labels, prob.shape[-1]).to(
-        prob.dtype)
-    clamped = torch.where(prob == 0.0, 0.001, prob)
-    loss_rows = -(y_hot * torch.log(clamped)).sum(-1)
-    # summed in float64 and rounded once: a CUDA float32 row sum splits a
-    # row by how many rows there are, so a party's loss would change in its
-    # last bit between the stacked [P, V] and the sharded [1, V] engine
-    loss = (torch.where(valid, loss_rows, 0.0).to(torch.float64).sum(-1)
-            / arr.num_local).to(prob.dtype)
+        y_hot = torch.nn.functional.one_hot(arr.labels, prob.shape[-1]).to(
+            prob.dtype)
+        clamped = torch.where(prob == 0.0, 0.001, prob)
+        loss_rows = -(y_hot * torch.log(clamped)).sum(-1)
+        # summed in float64 and rounded once: a CUDA float32 row sum splits
+        # a row by how many rows there are, so a party's loss would change
+        # in its last bit between the stacked [P, V] and the sharded [1, V]
+        # engine
+        loss = (torch.where(valid, loss_rows, 0.0).to(torch.float64).sum(-1)
+                / arr.num_local).to(prob.dtype)
 
-    hit = prob.argmax(-1) == arr.labels
+        hit = prob.argmax(-1) == arr.labels
 
-    def acc(mask):
-        n = mask.sum(-1)
-        return torch.where(n > 0, (hit & mask).sum(-1) / n.clamp(min=1), 0.0)
+        def acc(mask):
+            n = mask.sum(-1)
+            return torch.where(n > 0, (hit & mask).sum(-1) / n.clamp(min=1),
+                               0.0)
 
-    return {
-        "loss": loss,
-        "full_acc": acc(valid),
-        "train_acc": acc(train),
-        "border_train_acc": acc(train & border),
-        "test_acc": acc(test),
-        "border_test_acc": acc(test & border),
-        "num_border": (valid & border).sum(-1),
-    }
+        return {
+            "loss": loss,
+            "full_acc": acc(valid),
+            "train_acc": acc(train),
+            "border_train_acc": acc(train & border),
+            "test_acc": acc(test),
+            "border_test_acc": acc(test & border),
+            "num_border": (valid & border).sum(-1),
+        }
 
 
 def stack_epochs(run_epoch: Callable[[], Dict[str, torch.Tensor]],
                  n: int) -> Dict[str, torch.Tensor]:
     """``n`` calls of ``run_epoch`` (one epoch, its metrics [P] each) ->
     one dict of [P, n] tensors, each epoch's metrics written into stacks
-    allocated at the first."""
+    allocated at the first (each epoch's writes: the span
+    ``engine.stack``)."""
     stack = None
     for i in range(n):
         metrics = run_epoch()
-        if stack is None:
-            stack = {k: v.new_empty((*v.shape, n))
-                     for k, v in metrics.items()}
-        for k, v in metrics.items():
-            stack[k][..., i] = v
+        with span("engine.stack"):
+            if stack is None:
+                stack = {k: v.new_empty((*v.shape, n))
+                         for k, v in metrics.items()}
+            for k, v in metrics.items():
+                stack[k][..., i] = v
     return stack
 
 
@@ -773,5 +779,6 @@ class GasEngine:
     @torch.no_grad()
     def forward(self):
         """Full-graph inference: (logits [P, V, C], prob, metrics)."""
-        return self._graphs.call("forward", lambda: self._forward_body(
-            self.comm, self.arr, self._weights, self.x0))
+        with span("engine.forward"):
+            return self._graphs.call("forward", lambda: self._forward_body(
+                self.comm, self.arr, self._weights, self.x0))

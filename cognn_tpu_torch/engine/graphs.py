@@ -50,6 +50,14 @@ graph captured from the same code launches them all at once.
   * **Launch counts.** The kernel wrappers count launches that reach the
     card: a capture adds nothing, and each replay adds the launches its
     segments hold.
+  * **Tracing** (:mod:`cognn_tpu_torch.utils.logging_utils`, off by
+    default). Host spans ``graphs.replay`` (a replay's launches),
+    ``graphs.copy_out`` (:meth:`EngineGraphs.call`'s copies) and
+    ``graphs.capture``; counters ``graphs.replays``, ``graphs.captures``,
+    ``graphs.clears`` and ``graphs.copied_bytes``. Each call of a step
+    keeps the phase boundaries its code records (``recording``): an eager
+    call's own, a capture's as nodes of its graph, which every replay
+    records again, so the tracer's ``collect`` reads a replay's phases.
 
 Graphs run on the card on the ``bcsr`` and ``dense`` backends, stacked and
 sharded (:func:`use_graphs`); the CPU and the ``sparse`` backend run eager.
@@ -60,12 +68,12 @@ from __future__ import annotations
 
 import functools
 import itertools
-import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from cognn_tpu_torch.ops import intmatmul
+from cognn_tpu_torch.utils import logging_utils as trace
 
 # (object, attribute) of a plain-int launch counter
 Counter = Tuple[object, str]
@@ -102,6 +110,17 @@ def kernel_counters(spmm) -> list:
     return counters
 
 
+def _nbytes(out) -> int:
+    """The bytes of every tensor in ``out`` (tuples, lists, dicts)."""
+    if isinstance(out, torch.Tensor):
+        return out.nbytes
+    if isinstance(out, dict):
+        return _nbytes(list(out.values()))
+    if isinstance(out, (list, tuple)):
+        return sum(_nbytes(v) for v in out)
+    return 0
+
+
 def _copy(out):
     """``out`` (tensors in tuples, lists and dicts) with every tensor
     cloned."""
@@ -117,13 +136,16 @@ def _copy(out):
 class _Step:
     """One captured step: its segments, the collectives between them (each
     a call reading its static input and writing its static output), its
-    static outputs and the launches it holds."""
+    static outputs, the launches it holds and the phase boundaries captured
+    into it (none when tracing was off)."""
 
     def __init__(self, segments: Sequence, collectives: Sequence[Callable],
-                 out, counters: Sequence[Counter], launches: Sequence[int]):
+                 out, counters: Sequence[Counter], launches: Sequence[int],
+                 marks: list):
         self.segments, self.collectives = list(segments), list(collectives)
         self.out = out
         self.moved = [(c, n) for c, n in zip(counters, launches) if n]
+        self.marks = marks
 
     def replay(self):
         for graph, collective in itertools.zip_longest(self.segments,
@@ -156,11 +178,12 @@ class EngineGraphs:
         # the step being captured: its segments and collectives so far
         self._segments: Optional[List] = None
         self._collectives: List[Callable] = []
-        self.capture_s: Dict[str, float] = {}  # each step's last capture
 
     def clear(self) -> None:
         """Drop the captured graphs: the tensors they read were replaced.
         The next call of each step warms up and captures again."""
+        if self._steps:
+            trace.count("graphs.clears")
         self._steps.clear()
         self._pool = None
 
@@ -174,16 +197,23 @@ class EngineGraphs:
         """``fn()``'s outputs: eager when not enabled; else the first call
         eager, then the capture; later calls replay. A replay's outputs are
         the graph's own, valid until the step's next call."""
+        key = (self, name)
         if not self.enabled:
-            return fn()
+            with trace.recording(self.device, key):
+                return fn()
         step = self._steps.get(name)
         if step is not None:
-            return step.replay()
+            with trace.span("graphs.replay"):
+                out = step.replay()
+            trace.count("graphs.replays")
+            trace.replayed(key, step.marks)
+            return out
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         current = torch.cuda.current_stream(self.device)
         self._stream.wait_stream(current)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), \
+                trace.recording(self.device, key):
             out = fn()
         current.wait_stream(self._stream)
         self._capture(name, fn)
@@ -193,7 +223,12 @@ class EngineGraphs:
         """:meth:`run`, with the caller's own copy of a replay's outputs."""
         replay = self.enabled and name in self._steps
         out = self.run(name, fn)
-        return _copy(out) if replay else out
+        if not replay:
+            return out
+        if trace.TRACING:
+            trace.count("graphs.copied_bytes", _nbytes(out))
+        with trace.span("graphs.copy_out"):
+            return _copy(out)
 
     def collective(self, fn: Callable, x: torch.Tensor) -> torch.Tensor:
         """``fn(x)``, a collective of
@@ -226,10 +261,11 @@ class EngineGraphs:
             self._pool = torch.cuda.graph_pool_handle()
         before = [getattr(obj, attr) for obj, attr in self._counters]
         torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
         self._segments, self._collectives = [], []
         try:
-            with torch.cuda.stream(self._stream):
+            with trace.span("graphs.capture"), \
+                    torch.cuda.stream(self._stream), \
+                    trace.recording(self.device) as rec:
                 self._begin_segment()
                 try:
                     out = fn()
@@ -239,7 +275,7 @@ class EngineGraphs:
             segments, collectives = self._segments, self._collectives
         finally:
             self._segments, self._collectives = None, []
-        self.capture_s[name] = time.perf_counter() - t0
+        trace.count("graphs.captures")
         # the capture launched nothing: take its counts back, and let each
         # replay add them
         launches = [getattr(obj, attr) - b
@@ -247,4 +283,4 @@ class EngineGraphs:
         for (obj, attr), b in zip(self._counters, before):
             setattr(obj, attr, b)
         self._steps[name] = _Step(segments, collectives, out, self._counters,
-                                  launches)
+                                  launches, rec.marks)

@@ -121,6 +121,7 @@ from cognn_tpu_torch.ops.aggregate import segment_sum_rows
 from cognn_tpu_torch.ops.intmatmul import ring_matmul
 from cognn_tpu_torch.utils.distributed import PartyGroup
 from cognn_tpu_torch.utils.glibc_rand import glorot_init
+from cognn_tpu_torch.utils.logging_utils import phase, span
 
 
 class _MpcComm(_Comm):
@@ -322,75 +323,81 @@ class MpcGasEngine:
     def _aggregate(self, arr: _PlanArrays, sh: torch.Tensor,
                    dest_scale: bool) -> torch.Tensor:
         """Share-space Â application (scatter -> OGA -> halo -> gather)."""
-        plan = self.plan
-        V, M, P = plan.V, plan.M, plan.num_parties
-        D = sh.shape[-1]
-        proto = self.proto
+        with phase("oga"):
+            plan = self.plan
+            V, M, P = plan.V, plan.M, plan.num_parties
+            D = sh.shape[-1]
+            proto = self.proto
 
-        if self.rank is not None and (self.spmm is not None
-                                      or self.adj_t is not None):
-            # this party's update rows for every party, P chunks of V rows
-            # (one ring SpMM, or one K3 launch on both shares side by side),
-            # shipped by the halo; the P chunks received add up (wrapping)
+            if self.rank is not None and (self.spmm is not None
+                                          or self.adj_t is not None):
+                # this party's update rows for every party, P chunks of V
+                # rows (one ring SpMM, or one K3 launch on both shares side
+                # by side), shipped by the halo; the P chunks received add
+                # up (wrapping)
+                if self.spmm is not None:
+                    upd = self.spmm.ring(sh.reshape(2, V, D).contiguous())
+                else:
+                    side = sh.reshape(2, V, D).transpose(0, 1).reshape(1, V,
+                                                                       2 * D)
+                    upd = ring_matmul(self.adj_t, side).reshape(
+                        P * V, 2, D).transpose(0, 1)
+                recv = self.comm.halo(upd.reshape(2, 1, P, V, D))
+                agg = proto.add(sh, ring_sum(recv, 2))
+                return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
+
             if self.spmm is not None:
-                upd = self.spmm.ring(sh.reshape(2, V, D).contiguous())
-            else:
-                side = sh.reshape(2, V, D).transpose(0, 1).reshape(1, V,
-                                                                   2 * D)
-                upd = ring_matmul(self.adj_t, side).reshape(
-                    P * V, 2, D).transpose(0, 1)
-            recv = self.comm.halo(upd.reshape(2, 1, P, V, D))
-            agg = proto.add(sh, ring_sum(recv, 2))
+                # gather/OGA/halo/gather in one kernel over the flat edge
+                # matrix
+                upd = self.spmm.ring(sh.reshape(2, P * V, D))
+                agg = proto.add(sh, upd.reshape(sh.shape))
+                return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
+
+            if self.adj_t is not None:
+                # U = A^T [sh_0 | sh_1] mod 2^bits: one K3 launch, both shares
+                side = sh.reshape(2, P * V, D).transpose(0, 1).reshape(
+                    1, P * V, 2 * D)
+                upd = ring_matmul(self.adj_t, side).reshape(P * V, 2, D)
+                agg = proto.add(sh, upd.transpose(0, 1).reshape(sh.shape))
+                return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
+
+            # local slots: gather rows, mask dummies, segment-sum by
+            # destination
+            lvals = proto.mask_mul(_take_rows(sh, arr.loc_src),
+                                   arr.loc_valid[..., None])
+            loc_upd = segment_sum_rows(lvals, arr.loc_seg.expand(2, -1, -1),
+                                       V + 1)[:, :, :V]
+
+            # remote slots -> per-destination-party mirror rows
+            rvals = proto.mask_mul(_take_rows(sh, arr.rem_src),
+                                   arr.rem_valid[..., None])
+            send = segment_sum_rows(rvals, arr.rem_seg.expand(2, -1, -1),
+                                    P * M + 1)[:, :, :P * M]
+            # halo exchange: recv[:, me, i] = send[:, i, me]
+            # (mirror-update shipping, ss_…h:1089-1100)
+            recv = self.comm.halo(send.reshape(2, self.Pl, P, M, D))
+
+            # scatter mirror rows into local order (unique targets per pair)
+            tgt = torch.where(arr.recv_mask, arr.recv_target, V)
+            rows = proto.mask_mul(recv, arr.recv_mask[..., None])
+            rem_upd = segment_sum_rows(rows, tgt.expand(2, -1, -1, -1),
+                                       V + 1)[..., :V, :]
+            # rem_upd: [2, P, Pfrom, V, D]
+
+            # gather: base + masked adds (cond-vector-addition on shares)
+            agg = proto.add(sh, proto.mask_mul(loc_upd,
+                                               arr.gather_ok_self[..., None]))
+            agg = proto.add(agg, ring_sum(proto.mask_mul(
+                rem_upd, arr.gather_ok_from[..., None]), 2))
             return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
-
-        if self.spmm is not None:
-            # gather/OGA/halo/gather in one kernel over the flat edge matrix
-            upd = self.spmm.ring(sh.reshape(2, P * V, D))
-            agg = proto.add(sh, upd.reshape(sh.shape))
-            return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
-
-        if self.adj_t is not None:
-            # U = A^T [sh_0 | sh_1] mod 2^bits: one K3 launch, both shares
-            side = sh.reshape(2, P * V, D).transpose(0, 1).reshape(
-                1, P * V, 2 * D)
-            upd = ring_matmul(self.adj_t, side).reshape(P * V, 2, D)
-            agg = proto.add(sh, upd.transpose(0, 1).reshape(sh.shape))
-            return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
-
-        # local slots: gather rows, mask dummies, segment-sum by destination
-        lvals = proto.mask_mul(_take_rows(sh, arr.loc_src),
-                               arr.loc_valid[..., None])
-        loc_upd = segment_sum_rows(lvals, arr.loc_seg.expand(2, -1, -1),
-                                   V + 1)[:, :, :V]
-
-        # remote slots -> per-destination-party mirror rows
-        rvals = proto.mask_mul(_take_rows(sh, arr.rem_src),
-                               arr.rem_valid[..., None])
-        send = segment_sum_rows(rvals, arr.rem_seg.expand(2, -1, -1),
-                                P * M + 1)[:, :, :P * M]
-        # halo exchange: recv[:, me, i] = send[:, i, me]
-        # (mirror-update shipping, ss_…h:1089-1100)
-        recv = self.comm.halo(send.reshape(2, self.Pl, P, M, D))
-
-        # scatter mirror rows into local order (unique targets per pair)
-        tgt = torch.where(arr.recv_mask, arr.recv_target, V)
-        rows = proto.mask_mul(recv, arr.recv_mask[..., None])
-        rem_upd = segment_sum_rows(rows, tgt.expand(2, -1, -1, -1),
-                                   V + 1)[..., :V, :]  # [2, P, Pfrom, V, D]
-
-        # gather: base + masked adds (cond-vector-addition on shares)
-        agg = proto.add(sh, proto.mask_mul(loc_upd,
-                                           arr.gather_ok_self[..., None]))
-        agg = proto.add(agg, ring_sum(proto.mask_mul(
-            rem_upd, arr.gather_ok_from[..., None]), 2))
-        return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
 
     # ------------------------------------------------------------------
     @torch.no_grad()
     def forward(self):
         """Full-graph inference in share space: (revealed logits f32
         [P, V, C], prob, metrics)."""
-        return self._graphs.call("forward", self._forward_body)
+        with span("engine.forward"):
+            return self._graphs.call("forward", self._forward_body)
 
     def _forward_body(self):
         proto, gen = self.proto, self._gen
@@ -408,9 +415,10 @@ class MpcGasEngine:
                 h = self._aggregate(self.arr, h, dest_scale=True)
             if l != self.L - 1:
                 h = proto.relu(h)
-        z = proto.reveal(h)
-        prob = torch.softmax(z, dim=-1)
-        return z, prob, gcn_metrics(self.arr, prob)
+        with phase("apply"):
+            z = proto.reveal(h)
+            prob = torch.softmax(z, dim=-1)
+            return z, prob, gcn_metrics(self.arr, prob)
 
     def _unopt_layer(self, l: int, h: torch.Tensor, w: torch.Tensor):
         """Layer l of the unopt forward on shares (cognn_tpu/mpc/engine.py
@@ -428,20 +436,22 @@ class MpcGasEngine:
         """Prediction Apply (cognn_tpu/mpc/engine.py:1115-1125): reveal,
         softmax and the plaintext metrics; shares of p - y zeroed outside
         the local train split (gcn.h:636-641)."""
-        y_hot = torch.nn.functional.one_hot(arr.labels,
-                                            self.param.num_labels)
-        prob, pm_sh = self.proto.softmax_pred(self._gen, z_sh, y_hot)
-        pm_sh = self.proto.mask_mul(pm_sh, arr.train_mask[..., None])
-        return pm_sh, gcn_metrics(arr, prob)
+        with phase("apply"):
+            y_hot = torch.nn.functional.one_hot(arr.labels,
+                                                self.param.num_labels)
+            prob, pm_sh = self.proto.softmax_pred(self._gen, z_sh, y_hot)
+            pm_sh = self.proto.mask_mul(pm_sh, arr.train_mask[..., None])
+            return pm_sh, gcn_metrics(arr, prob)
 
     def _weight_mean(self, w_sh: torch.Tensor) -> torch.Tensor:
         """Cross-party share sum (wrapping) and a public 1/P scale,
         one replica per party again (gcn.h:747-802)."""
         if self.P == 1:
             return w_sh
-        total = self.comm.weight_total(w_sh)
-        return self.proto.scale_const(self._gen, total,
-                                      1.0 / self.P).expand_as(w_sh)
+        with phase("apply"):
+            total = self.comm.weight_total(w_sh)
+            return self.proto.scale_const(self._gen, total,
+                                          1.0 / self.P).expand_as(w_sh)
 
     def _epoch_opt(self):
         """One CoGNN-Opt training epoch on shares, 3L phases
@@ -546,8 +556,9 @@ class MpcGasEngine:
         forward's metrics."""
         weights, metrics = (self._epoch_unopt() if self.unopt
                             else self._epoch_opt())
-        for w, new in zip(self._weights_sh, weights):
-            w.copy_(new)
+        with phase("apply"):
+            for w, new in zip(self._weights_sh, weights):
+                w.copy_(new)
         return metrics
 
     # one epoch, n epochs, n epochs stacked: the plaintext engine's, on

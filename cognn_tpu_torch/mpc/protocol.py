@@ -20,6 +20,19 @@ random words, so the port's values equal the JAX package's bit for bit.
 ``truncation="probabilistic"`` shifts the shares locally (SecureML-style),
 with the known off-by-one or wrap error of probability ~|x|/2^(bits-f).
 
+Device phases of the tracer (:func:`cognn_tpu_torch.utils.logging_utils.
+phase`), named after ``tools/profile_epoch.py``'s buckets at the methods its
+rules name: ``matmul`` (:meth:`Protocol.matmul_prepped`: K3 and its
+operands), ``scale`` (:meth:`Protocol.scale_rows`), ``apply``
+(:meth:`Protocol.scale_const`, :meth:`Protocol.reveal`), ``nonlinear``
+(:meth:`Protocol.sign_mask`, :meth:`Protocol.relu`), ``reconstruct``
+(:meth:`Protocol.reconstruct_ring`) and ``trunc-reshare`` (the shift and
+re-share of a truncation); the draws inside are ``prng``
+(:func:`cognn_tpu_torch.core.shares.random_words`). ``add``, ``sub`` and
+``mask_mul`` are no phase of their own: their few launches take the phase
+of their caller, where a phase each would add two boundaries to each of
+some fifty calls an epoch.
+
 The JAX package's ``matmul_path`` ("small" / "full") is not ported: it chose
 between two MXU dot counts, and the port's kernel is exact for any operands
 of the ring.
@@ -46,6 +59,7 @@ from cognn_tpu_torch.core.ring import (
 )
 from cognn_tpu_torch.core.shares import share_split
 from cognn_tpu_torch.ops.intmatmul import ring_matmul
+from cognn_tpu_torch.utils.logging_utils import phase
 
 
 @dataclasses.dataclass
@@ -89,11 +103,13 @@ class Protocol:
         return share_split(gen, ring_val)
 
     def reconstruct_ring(self, sh: torch.Tensor) -> torch.Tensor:
-        return ring_add(sh[0], sh[1])
+        with phase("reconstruct"):
+            return ring_add(sh[0], sh[1])
 
     def reveal(self, sh: torch.Tensor) -> torch.Tensor:
         """-> float32 plaintext (sci::getPlainShareVecVec equivalent)."""
-        return ring_to_f32(self.reconstruct_ring(sh), self.f)
+        with phase("apply"):
+            return ring_to_f32(self.reconstruct_ring(sh), self.f)
 
     # -- linear ops (sharewise; never reconstruct) -----------------------
     def add(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -113,15 +129,17 @@ class Protocol:
     # -- truncation ------------------------------------------------------
     def _trunc_ring(self, gen: torch.Generator, val: torch.Tensor,
                     shift: int) -> torch.Tensor:
-        return self.reshare(gen, ring_arith_shift_right(val, shift))
+        with phase("trunc-reshare"):
+            return self.reshare(gen, ring_arith_shift_right(val, shift))
 
     def trunc(self, gen: torch.Generator, sh: torch.Tensor,
               shift: int | None = None) -> torch.Tensor:
         shift = self.f if shift is None else shift
         if self.truncation == "probabilistic":
-            s0 = ring_arith_shift_right(sh[0], shift)
-            s1 = ring_neg(ring_arith_shift_right(ring_neg(sh[1]), shift))
-            return torch.stack([s0, s1])
+            with phase("trunc-reshare"):
+                s0 = ring_arith_shift_right(sh[0], shift)
+                s1 = ring_neg(ring_arith_shift_right(ring_neg(sh[1]), shift))
+                return torch.stack([s0, s1])
         return self._trunc_ring(gen, self.reconstruct_ring(sh), shift)
 
     # -- multiplicative ops ----------------------------------------------
@@ -141,14 +159,16 @@ class Protocol:
     def matmul_prepped(self, gen: torch.Generator, prep_a: torch.Tensor,
                        b_sh: torch.Tensor) -> torch.Tensor:
         """:meth:`matmul` with the A side from :meth:`prep_matmul_a`."""
-        prod = ring_matmul(prep_a, self.reconstruct_ring(b_sh))  # 2f scale
-        return self._trunc_ring(gen, prod, self.f)
+        with phase("matmul"):
+            prod = ring_matmul(prep_a, self.reconstruct_ring(b_sh))  # 2f
+            return self._trunc_ring(gen, prod, self.f)
 
     def scale_rows(self, gen: torch.Generator, sh: torch.Tensor,
                    scalars_fp: torch.Tensor) -> torch.Tensor:
         """Multiply by public fixed-point scalars broadcast against the
         value dims (sci::twoPartyGCNVectorScale equivalent)."""
-        return self.trunc(gen, ring_mul(sh, scalars_fp[None]))
+        with phase("scale"):
+            return self.trunc(gen, ring_mul(sh, scalars_fp[None]))
 
     def scale_const(self, gen: torch.Generator, sh: torch.Tensor,
                     c: float) -> torch.Tensor:
@@ -156,14 +176,16 @@ class Protocol:
         (sci::twoPartyGCNMatrixScale: c encoded as int64(trunc(c * 2^f)),
         taken mod 2^bits)."""
         enc = int(np.int64(np.trunc(c * self.fp.scale)))
-        return self.trunc(gen, ring_mul(sh, enc))
+        with phase("apply"):
+            return self.trunc(gen, ring_mul(sh, enc))
 
     # -- nonlinear ops (reconstruct-and-mask) ----------------------------
     def sign_mask(self, sh: torch.Tensor) -> torch.Tensor:
         """Public bool mask of (x > 0); mode per ``nonlinear``."""
-        if self.nonlinear == "bitdecomp":
-            return self._sign_mask_bitdecomp(sh)
-        return self.reconstruct_ring(sh) > 0
+        with phase("nonlinear"):
+            if self.nonlinear == "bitdecomp":
+                return self._sign_mask_bitdecomp(sh)
+            return self.reconstruct_ring(sh) > 0
 
     def _sign_mask_bitdecomp(self, sh: torch.Tensor) -> torch.Tensor:
         """(x > 0) without forming x = a + b: with n the ring's bits, the
@@ -183,7 +205,8 @@ class Protocol:
     def relu(self, sh: torch.Tensor) -> torch.Tensor:
         """x * (x > 0) — mask multiply keeps shares linear, no truncation
         (sci::twoPartyGCNRelu equivalent)."""
-        return self.mask_mul(sh, self.sign_mask(sh))
+        with phase("nonlinear"):
+            return self.mask_mul(sh, self.sign_mask(sh))
 
     # -- comparison / MIN family -------------------------------------------
     def less_mask(self, a_sh: torch.Tensor,

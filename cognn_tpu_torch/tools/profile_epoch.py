@@ -51,11 +51,28 @@ memcpy / memset events) on the card; on the CPU, ``cpu_op``, where each
 operator that contains no other is its own launch, so the same
 classification runs on a CPU trace.
 
+``--graphed`` reads the same table from the engine as it runs on the card:
+built with its CUDA graphs (eager on the CPU and on ``sparse``), with the
+port's tracer on (:mod:`cognn_tpu_torch.utils.logging_utils`), whose device
+phases carry the buckets' names at the functions the rules name. A
+dispatch's metrics are fetched, then the tracer's ``collect`` reads the
+phase table of its last epoch; the table is the sum over ``--reps``
+dispatches of ``run_epochs_scan(--scan)`` after a warm one (the capture),
+so ``--reps`` epochs. A phase's time is its exclusive time between the
+timing events that each phase boundary records inside the graph (device
+clock; the host clock on the CPU), and the time outside every phase is
+``<other:unphased>``. Two rows differ from the eager table by design:
+``gcn_metrics`` is its own ``metrics`` phase (nested in ``apply``), and
+``add``, ``sub`` and ``mask_mul`` take their caller's phase (no
+``share-linear`` or ``ring-helpers`` rows). The boundaries' events run
+inside the graph, so a traced epoch is slower than an untraced one. No
+profiler runs and nothing is written to ``--outdir``.
+
 Usage:
   python -m cognn_tpu_torch.tools.profile_epoch [--dataset cora]
       [--parties 2] [--agg auto] [--variant opt] [--scan 64] [--reps 2]
       [--outdir DIR] [--dump] [--parse-only] [--breakdown-log PATH]
-      [--device cuda]
+      [--device cuda] [--graphed]
 
 --dump prints the first device events with their launch, frame and
 bucket. --breakdown-log writes ``::<tag> took <s>`` per-epoch lines in the
@@ -94,9 +111,11 @@ def log(*a):
     print(*a, file=sys.stderr, flush=True)
 
 
-def build_engine(dataset, parties, agg, variant, device="cuda"):
+def build_engine(dataset, parties, agg, variant, device="cuda",
+                 cuda_graphs=False):
     """The JAX tool's engine (``build_engine``, :45-68): synthetic Planetoid
-    statistics, vertex v to party v mod P, lane 128, PubMed reordered."""
+    statistics, vertex v to party v mod P, lane 128, PubMed reordered;
+    eager unless ``cuda_graphs`` (the engine's argument) says otherwise."""
     from cognn_tpu_torch.engine import build_device_plan
     from cognn_tpu_torch.graph import build_party_graph
     from cognn_tpu_torch.harness.datasets import synthetic_planetoid
@@ -115,7 +134,7 @@ def build_engine(dataset, parties, agg, variant, device="cuda"):
     reorder = dataset == "pubmed"
     plan = build_device_plan(graphs, lane=128, reorder=reorder)
     eng = MpcGasEngine(plan, ds.param, variant, aggregation=agg,
-                       device=device, cuda_graphs=False)
+                       device=device, cuda_graphs=cuda_graphs)
     return ds, eng
 
 
@@ -174,6 +193,12 @@ REF_TAGS = {
     "shared_share_arith": ("trunc-reshare", "reconstruct", "prng",
                            "ring-helpers", "share-linear"),
 }
+
+# --graphed: the tracer's own metrics phase is gcn_metrics, which the rules
+# put in apply
+GRAPHED_TAGS = {**REF_TAGS,
+                "Apply_computation": REF_TAGS["Apply_computation"]
+                + ("metrics",)}
 
 _FRAME = re.compile(r"^(?P<path>.*)\((?P<line>\d+)\): (?P<func>.*)$")
 
@@ -400,6 +425,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write ::<tag> took lines (driver log format)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where the epochs run (the card by default)")
+    ap.add_argument("--graphed", action="store_true",
+                    help="the engine's graphs, phases from the port's "
+                         "tracer (module docstring)")
     return ap
 
 
@@ -452,6 +480,28 @@ def untraced_epoch_s(eng, scan: int, device) -> float:
     return (time.perf_counter() - t0) / scan
 
 
+def graphed_phases(eng, scan: int, reps: int) -> dict:
+    """{bucket: ps} over ``reps`` epochs: the last epoch of each of
+    ``reps`` dispatches of ``run_epochs_scan(scan)``, its metrics fetched,
+    after a warm one, read from the tracer's phase tables."""
+    from cognn_tpu_torch.utils.logging_utils import (UNPHASED, collect,
+                                                     reset, tracing)
+
+    by_scope = defaultdict(int)
+    with tracing():
+        reset()
+        eng.metrics_host(eng.run_epochs_scan(scan))  # the capture
+        collect()
+        for _ in range(reps):
+            eng.metrics_host(eng.run_epochs_scan(scan))
+            for unit in collect():
+                for name, ns in unit["ns"].items():
+                    key = "<other:unphased>" if name == UNPHASED else name
+                    by_scope[key] += 1000 * ns
+        reset()
+    return dict(by_scope)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     leaf = "kernel" if args.device == "cuda" else "cpu_op"
@@ -467,6 +517,20 @@ def main(argv=None) -> int:
     from cognn_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(args.device)  # no card: raise before any work
+    if args.graphed:
+        ds, eng = build_engine(args.dataset, args.parties, args.agg,
+                               args.variant, device, cuda_graphs=None)
+        how = "graphed" if eng._graphs.enabled else "eager"
+        log(f"device={device} {args.dataset} P={args.parties} "
+            f"agg={eng.aggregation} variant={args.variant} {how}, the "
+            "port's tracer on")
+        by_scope = graphed_phases(eng, args.scan, args.reps)
+        plane = (f"{card_line()} (cuda:0), {how}, phase events"
+                 if device.type == "cuda" else
+                 "host (phase boundaries on the host clock)")
+        report(plane, by_scope, sum(by_scope.values()), args.reps,
+               args.breakdown_log, GRAPHED_TAGS)
+        return 0
     ds, eng = build_engine(args.dataset, args.parties, args.agg,
                            args.variant, device)
     log(f"device={device} {args.dataset} P={args.parties} "
@@ -493,7 +557,8 @@ def main(argv=None) -> int:
     return 0
 
 
-def report(plane, by_scope, total, n_epochs, breakdown_log):
+def report(plane, by_scope, total, n_epochs, breakdown_log,
+           tags=REF_TAGS):
     print(f"# trace plane: {plane}")
     print(f"# {n_epochs} epochs; device total "
           f"{total/1e12/n_epochs*1e6:.1f} us/epoch")
@@ -504,12 +569,12 @@ def report(plane, by_scope, total, n_epochs, breakdown_log):
               f"{v/total*100:5.1f}%")
     print()
     print("reference-tag mapping (ss_…h:745-897):")
-    for tag, scopes in REF_TAGS.items():
+    for tag, scopes in tags.items():
         ps = sum(by_scope.get(s, 0) for s in scopes)
         print(f"  ::{tag} took {ps/1e12/n_epochs:.6f}")
     if breakdown_log:
         with open(breakdown_log, "w") as f:
-            for tag, scopes in REF_TAGS.items():
+            for tag, scopes in tags.items():
                 ps = sum(by_scope.get(s, 0) for s in scopes)
                 f.write(f"::{tag} took {ps/1e12/n_epochs:.6f}\n")
             other = sum(v for k, v in by_scope.items()
