@@ -252,6 +252,18 @@
    share, the host's launch calls: ``cudaLaunchKernel`` against
    ``cudaGraphLaunch``), peak device memory over each engine's build and
    checked calls, and the capture time.
+20. Holds the metrics kernel (``csrc/metrics.cu``, ``ops/metrics.py``)
+   against its plain version on each cell after step 19
+   (``metrics_phase``), every metric ``torch.equal``: at the cell's shape
+   with its labels and masks and METRICS_SEEDS random predictions (ties,
+   exact zeros), each party alone as a sharded party holds it (on the
+   second card where there is one), empty train, test and border sets,
+   NaN, infinite and negative probabilities (NaN where the plain version
+   has NaN), every C of METRICS_WIDTHS, V of METRICS_ROWS, and the most
+   labels the kernel takes (``MAX_CLASSES``; one more is refused); then
+   times it (warm L2) beside its plain version and its bound. Step 19
+   also counts one metrics kernel a request and an epoch, and holds the
+   last request's metrics graphed == eager.
 
 The line before the last is one JSON object with each kernel's numbers
 (the engines' kernels also with their ``training_launches`` and
@@ -466,6 +478,15 @@ EXAMPLE_EPOCHS = 10
 # turns (as many epochs as EPOCHS_TIMED_UNOPT, for the same reason)
 GRAPH_CALLS_TIMED = 20
 GRAPH_EPOCHS_TIMED = 20
+METRICS_SEEDS = (0, 1, 2)  # random predictions a cell's shape
+METRICS_WIDTHS = range(2, 65)  # label counts C held at METRICS_C_SHAPE
+METRICS_C_SHAPE = (2, 1500)  # (P, V)
+# rows a party around the kernel's 8 blocks a party and its tiles of 1024
+# rows
+METRICS_ROWS = (0, 1, 7, 8, 9, 2047, 2048, 2049, 8191, 8192, 8193, 20000)
+METRICS_REPLACES = ("none: the plain ops of cognn_tpu/engine/gas.py "
+                    "gcn_metrics, fused by XLA into the jitted forward and "
+                    "epoch")
 
 
 def card_line() -> str:
@@ -3108,10 +3129,13 @@ def graph_cases(cell: str) -> list:
 def graph_run(engine) -> dict:
     """The calls ``graph_phase`` makes of each engine first: FORWARDS
     requests, EPOCHS_CHECKED epochs through ``run_epochs_scan``, one more
-    request, the kernel counts set to 0 just before the requests and the
-    epochs and read just after, the generator's offset after each call
-    (secret-shared). The second request's logits and the epochs' metrics
+    request, the kernel counts (the metrics kernel's too) set to 0 just
+    before the requests and the epochs and read just after, the
+    generator's offset after each call (secret-shared). The second
+    request's logits, the epochs' metrics and the last request's metrics
     are kept with a copy taken at once."""
+    from cognn_tpu_torch.ops import metrics as metric_ops
+
     gen = getattr(engine, "_gen", None)
     spmms = [engine.spmm] if engine.spmm is not None else []
     run = {"z": [], "offsets": []}
@@ -3121,18 +3145,24 @@ def graph_run(engine) -> dict:
             run["offsets"].append(gen.get_offset())
 
     reset_counts(spmms)
+    metric_ops.launches = 0
     for _ in range(FORWARDS):
         run["z"].append(engine.forward()[0])
         offset()
-    run["forward_counts"] = read_counts(spmms)
+    run["forward_counts"] = {**read_counts(spmms),
+                             "gcn_metrics": metric_ops.launches}
     reset_counts(spmms)
+    metric_ops.launches = 0
     run["metrics"] = engine.run_epochs_scan(EPOCHS_CHECKED)
-    run["epoch_counts"] = read_counts(spmms)
+    run["epoch_counts"] = {**read_counts(spmms),
+                           "gcn_metrics": metric_ops.launches}
     offset()
-    run["z"].append(engine.forward()[0])
+    z, _, run["request_metrics"] = engine.forward()
+    run["z"].append(z)
     offset()
     run["held"] = [(run["z"][1], run["z"][1].clone())] + [
-        (v, v.clone()) for v in run["metrics"].values()]
+        (v, v.clone()) for v in (*run["metrics"].values(),
+                                 *run["request_metrics"].values())]
     return run
 
 
@@ -3157,17 +3187,19 @@ def graph_hold(label: str, mpc: bool, got, want) -> bool:
 
 
 def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
-               n_edges: int) -> None:
+               n_edges: int) -> dict:
     """One engine of ``graph_phase``: the graphed engine (the default) and
     an eager one (``cuda_graphs=False``) built from the same seeds, each
     through :func:`graph_run` with peak device memory read around its build
     and calls; then requests and epochs timed in turns, one epoch of each
-    profiled. Gates: logits, every epoch's metrics and the (revealed)
-    weights graphed == eager (:func:`graph_hold`) after the checked epochs
-    and again after the timed ones; the counts of both each FORWARDS and
-    EPOCHS_CHECKED times :func:`forward_counts` / :func:`epoch_counts`
-    (through replays); the generator's offset graphed == eager after every
-    call, and growing; the kept results unchanged by every later call."""
+    profiled. Gates: logits, every epoch's and the last request's metrics
+    and the (revealed) weights graphed == eager (:func:`graph_hold`) after
+    the checked epochs and again after the timed ones; the counts of both
+    each FORWARDS and EPOCHS_CHECKED times :func:`forward_counts` /
+    :func:`epoch_counts` and one metrics kernel a call (through replays);
+    the generator's offset graphed == eager after every
+    call, and growing; the kept results unchanged by every later call.
+    Returns the graphed engine's ``forward_counts`` and ``epoch_counts``."""
     from cognn_tpu_torch.engine import GasEngine
     from cognn_tpu_torch.mpc import MpcGasEngine
 
@@ -3191,8 +3223,11 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
                               torch.cuda.max_memory_reserved() - res)
     eager, graphed = runs["eager"], runs["graphed"]
     g_eng, e_eng = graphed["engine"], eager["engine"]
-    want_f = {k: FORWARDS * v for k, v in forward_counts(g_eng).items()}
-    want_e = {k: EPOCHS_CHECKED * v for k, v in epoch_counts(g_eng).items()}
+    want_f = {**{k: FORWARDS * v for k, v in forward_counts(g_eng).items()},
+              "gcn_metrics": FORWARDS}
+    want_e = {**{k: EPOCHS_CHECKED * v
+                 for k, v in epoch_counts(g_eng).items()},
+              "gcn_metrics": EPOCHS_CHECKED}
     for mode, run in runs.items():
         if run["forward_counts"] != want_f or run["epoch_counts"] != want_e:
             raise AssertionError(f"{name} {mode}: launches "
@@ -3206,8 +3241,10 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
 
     equal = {"logits": graph_hold(name, mpc, graphed["z"], eager["z"]),
              "metrics": graph_hold(name, mpc,
-                                   list(graphed["metrics"].values()),
-                                   list(eager["metrics"].values())),
+                                   [*graphed["metrics"].values(),
+                                    *graphed["request_metrics"].values()],
+                                   [*eager["metrics"].values(),
+                                    *eager["request_metrics"].values()]),
              "weights": graph_hold(name, mpc, weights(g_eng),
                                    weights(e_eng))}
 
@@ -3262,7 +3299,8 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
     epoch_ms = min(ms["epoch"]["graphed"])
     print(f"{name}: graphed == eager (torch.equal: {equal}; plaintext "
           f"within {LOGITS_TOL_OF_MAX} x max): logits of {FORWARDS + 1} "
-          f"requests, metrics of {EPOCHS_CHECKED} epochs, weights after "
+          f"requests, metrics of {EPOCHS_CHECKED} epochs and the last "
+          f"request, weights after "
           f"them and again after the timed and profiled ones; launches "
           f"{graphed['forward_counts']} in {FORWARDS} "
           f"requests, {graphed['epoch_counts']} in {EPOCHS_CHECKED} epochs, "
@@ -3289,6 +3327,7 @@ def graph_case(cell: str, plan, param, label: str, mpc: bool, kw: dict,
           f"{pool_bytes or 'not measured'} B; capture s {capture} (the "
           f"tracer's graphs.capture span, captured again with the tracer "
           f"on); {card_line()}", flush=True)
+    return {k: graphed[k] for k in ("forward_counts", "epoch_counts")}
 
 
 def capture_s(engine) -> dict:
@@ -3321,14 +3360,171 @@ def capture_s(engine) -> dict:
     return out
 
 
-def graph_phase(cell: str, plan, param, n_edges: int) -> None:
+def graph_phase(cell: str, plan, param, n_edges: int) -> dict:
     """Requests and epochs as CUDA graph replays against the eager engines
     that the graphs are captured from: :func:`graph_case` for each of
-    :func:`graph_cases`."""
+    :func:`graph_cases`. Returns each case's counts by its label."""
     t0 = time.perf_counter()
-    for label, mpc, kw in graph_cases(cell):
-        graph_case(cell, plan, param, label, mpc, kw, n_edges)
+    counts = {label: graph_case(cell, plan, param, label, mpc, kw, n_edges)
+              for label, mpc, kw in graph_cases(cell)}
     print(f"graph {cell}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
+def metrics_inputs(P: int, V: int, C: int, seed: int, device="cuda",
+                   plan_arrays=None) -> tuple:
+    """Arguments of ``ops/metrics.py`` ``gcn_metrics``: softmax rows of
+    random logits from ``seed``, every 37th row all equal (ties) and every
+    53rd row's first probability exactly 0 (the clamp); labels and masks
+    random (the last 17·p rows of party p invalid), or the cell's own from
+    ``plan_arrays`` (``plan_tensors``' dict)."""
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(P, V, C, generator=g) * 3
+    z[:, ::37] = 1.0
+    prob = torch.softmax(z, -1)
+    prob[:, ::53, 0] = 0.0
+    if plan_arrays is not None:
+        t = plan_arrays
+        return (prob.to(device), t["labels"], t["vertex_mask"],
+                t["train_mask"], t["val_mask"], t["border"], t["num_local"])
+    labels = torch.randint(0, C, (P, V), generator=g)
+    num_local = torch.tensor([max(V - 17 * p, 0) for p in range(P)])
+    valid = torch.arange(V)[None] < num_local[:, None]
+    split = torch.rand(P, V, generator=g)
+    train, val = (split < 0.3) & valid, (split > 0.8) & valid
+    border = torch.rand(P, V, generator=g) < 0.4
+    return tuple(t.to(device) for t in (prob, labels, valid, train, val,
+                                        border, num_local.clamp(min=1)))
+
+
+def metrics_edges(args) -> tuple:
+    """``args`` of 4 parties with party 0 no train rows, party 1 no test
+    rows (every valid row train or val), party 2 no border rows and party 3
+    a train row outside its valid rows."""
+    prob, labels, valid, train, val, border, num_local = (
+        t.clone() for t in args)
+    train[0] = False
+    val[1] = valid[1] & ~train[1]
+    border[2] = False
+    train[3, -1] = True
+    return prob, labels, valid, train, val, border, num_local
+
+
+def metrics_non_finite(args) -> tuple:
+    """``args`` of 4 parties with a NaN (party 0), +inf (party 1) and a
+    negative probability (party 2) in a column other than row 0's label,
+    and a NaN in party 3's last row, which is not valid: the plain
+    version's loss is NaN for parties 0 to 2 (its one-hot row sum takes 0
+    times every column's log) and finite for party 3."""
+    prob, labels, valid, train, val, border, num_local = (
+        t.clone() for t in args)
+    C = prob.shape[-1]
+    for p, x in enumerate((float("nan"), float("inf"), -0.25)):
+        prob[p, 0, (labels[p, 0] + 1) % C] = x
+    prob[3, -1, 0] = float("nan")
+    return prob, labels, valid, train, val, border, num_local
+
+
+def metrics_held(what: str, got: dict, want: dict) -> None:
+    """Raises unless every metric of ``got`` is ``torch.equal`` to
+    ``want``'s, with the same keys, dtypes and shapes (a NaN where
+    ``want`` has a NaN, the rest ``torch.equal``)."""
+    if list(got) != list(want):
+        raise AssertionError(f"{what}: keys {list(got)}, want {list(want)}")
+    for k, v in got.items():
+        v, w = v.cpu(), want[k].cpu()
+        nan = v.isnan()
+        if v.dtype != w.dtype or v.shape != w.shape or not torch.equal(
+                nan, w.isnan()) or not torch.equal(v[~nan], w[~nan]):
+            raise AssertionError(f"{what}: {k} kernel {v.tolist()} "
+                                 f"({v.dtype}), plain {w.tolist()} "
+                                 f"({w.dtype})")
+
+
+def metrics_phase(cell: str, plan, param, launch_ms: float) -> dict:
+    """The metrics kernel (``csrc/metrics.cu``) against its plain version
+    on the card, every metric ``torch.equal``: at the cell's shape with
+    its own labels and masks and METRICS_SEEDS random predictions (the
+    kernel's launches counted, one a call); each party alone, ``[1, V,
+    C]`` on the second card where there is one (else this one), equal to
+    its row of the stacked result; the cases of :func:`metrics_edges` and
+    of :func:`metrics_non_finite`; every C of METRICS_WIDTHS, V of
+    METRICS_ROWS, and C = MAX_CLASSES (C + 1 refused). Then kernel and
+    plain version timed (warm L2) beside the bound: the bytes read and
+    written at the memory rate, or the launch floor ``launch_ms``."""
+    from cognn_tpu_torch.engine.plan import plan_tensors, set_split
+    from cognn_tpu_torch.ops import metrics as metric_ops
+    from cognn_tpu_torch.ops.metrics import (MAX_CLASSES, gcn_metrics,
+                                             gcn_metrics_plain)
+
+    t0 = time.perf_counter()
+    P, V, C = plan.num_parties, plan.V, param.num_labels
+    set_split(plan, param.train_ratio, param.val_ratio)  # as the engines
+    arrays = plan_tensors(plan, torch.device("cuda"))
+    other = torch.device(f"cuda:{min(1, torch.cuda.device_count() - 1)}")
+    checked = 0
+    for seed in METRICS_SEEDS:
+        args = metrics_inputs(P, V, C, seed, plan_arrays=arrays)
+        metric_ops.launches = 0
+        got = gcn_metrics(*args)
+        if metric_ops.launches != 1:
+            raise AssertionError(f"metrics {cell}: {metric_ops.launches} "
+                                 "launches a call")
+        metrics_held(f"metrics {cell} seed {seed}", got,
+                     gcn_metrics_plain(*args))
+        for p in range(P):
+            alone = gcn_metrics(*(a[p:p + 1].to(other) for a in args))
+            metrics_held(f"metrics {cell} seed {seed} party {p} alone on "
+                         f"{other}", alone,
+                         {k: v[p:p + 1] for k, v in got.items()})
+        checked += 1 + P
+    for seed in METRICS_SEEDS:
+        for edges in (metrics_edges, metrics_non_finite):
+            args = edges(metrics_inputs(4, 300, C, seed))
+            metrics_held(f"metrics {edges.__name__} seed {seed}",
+                         gcn_metrics(*args), gcn_metrics_plain(*args))
+            checked += 1
+    for c in METRICS_WIDTHS:
+        args = metrics_inputs(*METRICS_C_SHAPE, c, c)
+        metrics_held(f"metrics C={c}", gcn_metrics(*args),
+                     gcn_metrics_plain(*args))
+        checked += 1
+    for v in METRICS_ROWS:
+        args = metrics_inputs(2, v, C, v)
+        metrics_held(f"metrics V={v}", gcn_metrics(*args),
+                     gcn_metrics_plain(*args))
+        checked += 1
+    args = metrics_inputs(2, 40, MAX_CLASSES, 5)
+    metrics_held(f"metrics C={MAX_CLASSES}", gcn_metrics(*args),
+                 gcn_metrics_plain(*args))
+    checked += 1
+    try:
+        gcn_metrics(*metrics_inputs(2, 40, MAX_CLASSES + 1, 5))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"metrics: C = {MAX_CLASSES + 1} not refused")
+    args = metrics_inputs(P, V, C, 0, plan_arrays=arrays)
+    torch.cuda.synchronize()
+    ms = device_ms(lambda: gcn_metrics(*args), TIMED_CALLS)
+    plain_ms = device_ms(lambda: gcn_metrics_plain(*args), TIMED_CALLS)
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + P * (6 * 4 + 8))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    print(f"metrics {cell} [{P}, {V}, {C}]: {checked} calls torch.equal to "
+          f"the plain version (the cell's masks x {len(METRICS_SEEDS)} "
+          f"seeds, each party alone on {other}, edge cases, non-finite "
+          f"probabilities, C = {METRICS_WIDTHS.start}.."
+          f"{METRICS_WIDTHS.stop - 1} and {MAX_CLASSES}, V in "
+          f"{list(METRICS_ROWS)}); kernel_ms={ms!r} plain_ms={plain_ms!r} "
+          f"bound_ms={max(t_bytes, launch_ms)!r} (bytes {t_bytes!r} ms for "
+          f"{nbytes} B, launch floor {launch_ms!r} ms); "
+          f"{time.perf_counter() - t0:.1f} s; {card_line()}", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": max(t_bytes, launch_ms),
+            "bound_by": "bytes" if t_bytes >= launch_ms else "launch floor",
+            "check": "torch.equal", "max_abs_err": 0.0,
+            "shape": f"prob [{P}, {V}, {C}], the cell's labels and masks"}
 
 
 def cell_graphs(dataset: str, parties: int):
@@ -3838,7 +4034,7 @@ def main(argv) -> None:
     all_ones_check()
     edge_case_check()
     sddmm_edge_check()
-    launch_floor()
+    floor_ms = launch_floor()
 
     kernels = []
     for cell, dataset, parties, replaces, jax_path in CELLS:
@@ -3911,7 +4107,8 @@ def main(argv) -> None:
         an = analytics_phase(cell, dataset, parties, mac_ms)
         r32 = ring32_phase(cell, plan, param, engine.spmm, dup, mac_ms,
                            n_edges)
-        graph_phase(cell, plan, param, n_edges)
+        graphed = graph_phase(cell, plan, param, n_edges)["mpc opt"]
+        metrics_k = metrics_phase(cell, plan, param, floor_ms)
 
         csr = f"n={engine.spmm.n_dst}, nnz={engine.spmm.nnz}"
         kernels += [{
@@ -4100,6 +4297,16 @@ def main(argv) -> None:
             "shape": f"the RING32 epoch's other shapes (launches: all of "
                      f"{EPOCHS_CHECKED} epochs): {k3_32_train}",
             **r32["k3_train"],
+        }, {
+            "name": f"gcn_metrics_f32[{cell}]",
+            "route": "cuda",
+            "source": "cognn_tpu_torch/csrc/metrics.cu",
+            "replaces": METRICS_REPLACES,
+            "jax_path": "cognn_tpu/engine/gas.py gcn_metrics (plain jnp)",
+            "launches": graphed["forward_counts"]["gcn_metrics"] // FORWARDS,
+            "launches_per_epoch":
+                graphed["epoch_counts"]["gcn_metrics"] // EPOCHS_CHECKED,
+            **metrics_k,
         }]
         if dense is not None:
             opt = dense["counts"][f"{cell} dense opt mpc"]

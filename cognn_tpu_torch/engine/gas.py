@@ -82,6 +82,7 @@ from cognn_tpu_torch.engine.plan import (
     plan_tensors,
     set_split,
 )
+from cognn_tpu_torch.ops import metrics as metric_ops
 from cognn_tpu_torch.ops.aggregate import segment_sum_rows
 from cognn_tpu_torch.ops.spmm import Spmm
 from cognn_tpu_torch.utils.device import resolve_device
@@ -214,40 +215,13 @@ def gcn_metrics(arr: _PlanArrays,
                 prob: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Per-party loss, accuracies and border count of ``prob [P, V, C]``:
     the plaintext metric definitions, which the secret-shared engine uses on
-    its revealed prediction too; the tracer's ``metrics`` phase."""
+    its revealed prediction too (:func:`cognn_tpu_torch.ops.metrics.
+    gcn_metrics`: one kernel on the card); the tracer's ``metrics``
+    phase."""
     with phase("metrics"):
-        valid = arr.vertex_mask
-        train = arr.train_mask
-        test = valid & ~arr.train_mask & ~arr.val_mask
-        border = arr.border
-
-        y_hot = torch.nn.functional.one_hot(arr.labels, prob.shape[-1]).to(
-            prob.dtype)
-        clamped = torch.where(prob == 0.0, 0.001, prob)
-        loss_rows = -(y_hot * torch.log(clamped)).sum(-1)
-        # summed in float64 and rounded once: a CUDA float32 row sum splits
-        # a row by how many rows there are, so a party's loss would change
-        # in its last bit between the stacked [P, V] and the sharded [1, V]
-        # engine
-        loss = (torch.where(valid, loss_rows, 0.0).to(torch.float64).sum(-1)
-                / arr.num_local).to(prob.dtype)
-
-        hit = prob.argmax(-1) == arr.labels
-
-        def acc(mask):
-            n = mask.sum(-1)
-            return torch.where(n > 0, (hit & mask).sum(-1) / n.clamp(min=1),
-                               0.0)
-
-        return {
-            "loss": loss,
-            "full_acc": acc(valid),
-            "train_acc": acc(train),
-            "border_train_acc": acc(train & border),
-            "test_acc": acc(test),
-            "border_test_acc": acc(test & border),
-            "num_border": (valid & border).sum(-1),
-        }
+        return metric_ops.gcn_metrics(prob, arr.labels, arr.vertex_mask,
+                                      arr.train_mask, arr.val_mask,
+                                      arr.border, arr.num_local)
 
 
 def stack_epochs(run_epoch: Callable[[], Dict[str, torch.Tensor]],

@@ -73,6 +73,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from cognn_tpu_torch.ops import intmatmul
+from cognn_tpu_torch.ops import metrics as metric_ops
 from cognn_tpu_torch.utils import logging_utils as trace
 
 # (object, attribute) of a plain-int launch counter
@@ -102,8 +103,10 @@ def use_graphs(cuda_graphs: Optional[bool], device: torch.device,
 
 def kernel_counters(spmm) -> list:
     """The launch counters an engine's steps move: K3's int64 and int32
-    counts and, with the ``bcsr`` backend, its :class:`Spmm`'s three."""
-    counters = [(intmatmul, "launches"), (intmatmul, "launches_i32")]
+    counts, the metrics kernel's and, with the ``bcsr`` backend, its
+    :class:`Spmm`'s three."""
+    counters = [(intmatmul, "launches"), (intmatmul, "launches_i32"),
+                (metric_ops, "launches")]
     if spmm is not None:
         counters += [(spmm, name) for name in
                      ("launches", "ring_launches", "ring32_launches")]

@@ -24,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("spmm", "ring_matmul", "spmm_merged", "sddmm", "stamp")
+SOURCES = ("spmm", "ring_matmul", "spmm_merged", "sddmm", "stamp",
+           "metrics")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xptxas=-v", "-shared", "-Xcompiler", "-fPIC")
 HOST_SOURCES = ("graph_io",)

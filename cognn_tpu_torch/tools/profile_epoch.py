@@ -143,6 +143,7 @@ def build_engine(dataset, parties, agg, variant, device="cuda",
 _FILE_RULES = {
     "ops/spmm.py": "oga", "ops/bcsr.py": "oga", "ops/aggregate.py": "oga",
     "ops/intmatmul.py": "matmul",
+    "ops/metrics.py": "apply",  # gcn_metrics' kernel or plain version
     "core/ring.py": "ring-helpers", "core/fixedpoint.py": "ring-helpers",
     "core/shares.py": "ring-helpers",
     "utils/glibc_rand.py": "other",
@@ -157,8 +158,6 @@ _FUNC_RULES = {  # (file, function) overrides
     ("mpc/engine.py", "_epoch_step"): "apply",  # the weight write-back
     ("engine/gas.py", "_aggregate"): "oga",
     ("engine/gas.py", "halo"): "oga",
-    ("engine/gas.py", "gcn_metrics"): "apply",
-    ("engine/gas.py", "acc"): "apply",  # gcn_metrics' nested accuracy
     ("engine/gas.py", "stack_epochs"): "scan-overhead",
     ("engine/gas.py", "_epoch_step"): "apply",
     ("mpc/protocol.py", "matmul"): "matmul",

@@ -90,7 +90,7 @@ def hand_trace():
         launch(6, 710),           # -> <other:engine.py:_epoch_opt>
         # gcn_metrics' nested accuracy, then stack_epochs
         frame(PKG + "engine/gas.py", "gcn_metrics", 800, 100),
-        frame(PKG + "engine/gas.py", "acc", 820, 30),
+        frame(PKG + "ops/metrics.py", "acc", 820, 30),
         launch(7, 830),           # -> apply
         frame(PKG + "engine/gas.py", "stack_epochs", 1600, 50),
         launch(8, 1610),          # -> scan-overhead
