@@ -264,6 +264,18 @@
    times it (warm L2) beside its plain version and its bound. Step 19
    also counts one metrics kernel a request and an epoch, and holds the
    last request's metrics graphed == eager.
+21. Drives the GAT of the benchmark's configuration ``gat2_pubmed_4p_ss``
+   after the cells' loop (``gat_phase``; its graph and leaves from seed
+   0): the weighted ring SpMM (``csrc/spmm.cu`` ``csr_gather_wsum``) and
+   the ring multi-head SDDMM (``csrc/sddmm.cu`` ``edge_dot_heads``) held
+   ``torch.equal`` to their plain versions on edge cases
+   (``gat_edge_check``) and, forward and transposed, at the cell's shapes
+   on random full-range values, int64 and int32, and timed beside their
+   bounds; then a graphed GAT engine against an eager one from the same
+   seed: each replay launches what an eager epoch launches (the counts
+   read from the eager epochs), the weighted SpMM and the SDDMM at least
+   once, ``graphs.replays`` one an epoch; losses, leaves and a graphed
+   request's logits equal; ms an epoch graphed and eager, peak memory.
 
 The line before the last is one JSON object with each kernel's numbers
 (the engines' kernels also with their ``training_launches`` and
@@ -487,6 +499,22 @@ METRICS_ROWS = (0, 1, 7, 8, 9, 2047, 2048, 2049, 8191, 8192, 8193, 20000)
 METRICS_REPLACES = ("none: the plain ops of cognn_tpu/engine/gas.py "
                     "gcn_metrics, fused by XLA into the jitted forward and "
                     "epoch")
+# gat_phase: the benchmark's GAT configuration (its cell
+# gat-pubmed4p-ss-train), its graph and leaves from seed 0; the epochs held
+# graphed against eager, and timed
+GAT_CONFIG = "gat2_pubmed_4p_ss"
+GAT_EPOCHS_CHECKED = 3
+GAT_EPOCHS_TIMED = 90
+GAT_RING32 = (32, 16)  # the int32 engine whose launches the kernels line gives
+GAT_RINGED = ("wsum", "sddmm_heads", "ring_matmul")  # counted a ring
+# the weighted SpMM's edge cases: (heads, f) (scalar, vector and wide rows,
+# a head split across a vector load) on edge_graph's rows
+GAT_EDGE_HEADS = ((1, 1), (3, 3), (8, 3), (8, 8), (7, 10), (3, 30))
+# the ring SDDMM's: edge counts around its batch of 4 and its 128-thread
+# blocks, at (heads, f) as above
+GAT_SDDMM_EDGES = (0, 1, 3, 4, 5, 127, 128, 129, 5003)
+GAT_REPLACES = ("none: the JAX package has no attention model (its K5, "
+                "cognn_tpu/ops/pallas_sddmm.py, was written for one)")
 
 
 def card_line() -> str:
@@ -3970,6 +3998,273 @@ def tools_phase() -> None:
         raise AssertionError("analytics example: BFS differs")
 
 
+def gat_edge_check() -> None:
+    """The weighted ring SpMM and the ring multi-head SDDMM against their
+    plain versions (``torch.equal``) on edge cases, int64 and int32:
+    ``edge_graph``'s rows (a hub of 1500 entries, rows one below, at and
+    one above the batch sizes, empty first, middle and last rows, repeated
+    edges) sorted by destination, at each (heads, f) of GAT_EDGE_HEADS, on
+    aligned rows and on rows one element into their storage (the scalar
+    path); the SDDMM at each edge count of GAT_SDDMM_EDGES."""
+    from cognn_tpu_torch.core.ring import RING32, RING64, ring_from_u64
+    from cognn_tpu_torch.ops.sddmm import Sddmm, heads_plain
+    from cognn_tpu_torch.ops.spmm import WeightedSpmm, wsum_plain
+
+    rng = np.random.default_rng(11)
+    src, dst, n_dst = edge_graph()
+    order = np.argsort(dst, kind="stable")
+    src, dst = src[order], dst[order]
+    k = WeightedSpmm(src, dst, EDGE_N_SRC, n_dst, torch.device("cuda"))
+
+    def values(shape, spec):
+        return ring_from_u64(rng.integers(0, 1 << 64, shape,
+                                          dtype=np.uint64), spec,
+                             device="cuda")
+
+    for spec in (RING64, RING32):
+        for H, f in GAT_EDGE_HEADS:
+            w = values((k.nnz, H), spec)
+            for offset in (0, 1):
+                h = offset_view(values((EDGE_N_SRC, H * f), spec), offset)
+                held(f"weighted spmm ring{spec.bits} H={H} f={f} "
+                     f"offset={offset}", k(w, h),
+                     wsum_plain(k.indptr, k.indices, w, h), None)
+            for n in GAT_SDDMM_EDGES:
+                e = rng.integers(0, n_dst, n)
+                sd = Sddmm(rng.integers(0, EDGE_N_SRC, n), e, EDGE_N_SRC,
+                           n_dst, "cuda")
+                b = values((n_dst, H * f), spec)
+                for offset in (0, 1):
+                    a = offset_view(values((EDGE_N_SRC, H * f), spec), offset)
+                    held(f"ring sddmm ring{spec.bits} H={H} f={f} n={n} "
+                         f"offset={offset}", sd.ring(a, b, H),
+                         heads_plain(sd.src, sd.dst, a, b, H), None)
+    print(f"gat kernels: equal to plain on edge cases (rows of "
+          f"{np.bincount(dst).max()} entries at most, heads "
+          f"{GAT_EDGE_HEADS}, SDDMM edge counts {GAT_SDDMM_EDGES}), int64 "
+          f"and int32", flush=True)
+
+
+def gat_kernel_phase(engine, spec, mac_ms: float) -> tuple:
+    """The weighted ring SpMM (forward and transposed) and the ring SDDMM
+    at the cell's shapes (each layer's heads), on random full-range values
+    of the ring ``spec``: held ``torch.equal`` to the plain versions and
+    timed (:func:`measure`; no library computes either in the ring).
+    ``mac_ms``: one 64-bit multiply-add (3 IMADs; 1 at 32 bits)."""
+    from cognn_tpu_torch.core.ring import ring_from_u64
+    from cognn_tpu_torch.ops.sddmm import heads_plain, heads_shape
+    from cognn_tpu_torch.ops.spmm import launch_shape, wsum_plain
+
+    e, el = engine.edges, spec.bits // 8
+    mac = mac_ms if spec.bits == 64 else mac_ms / MULTIPLIES_PER_MAC
+    rng = np.random.default_rng(5)
+
+    def values(shape):
+        return ring_from_u64(rng.integers(0, 1 << 64, shape,
+                                          dtype=np.uint64), spec,
+                             device="cuda")
+
+    heads = list(zip(engine.heads, engine.head_dim))
+    ops = {(H, f): e.count * H * f * mac for H, f in heads}
+
+    def wagg_cases():
+        for H, f in heads:
+            D = H * f
+            w, h = values((e.count, H)), values((e.n, D))
+            wt = w[e.t_order]
+            path = launch_shape(D, el, (h.data_ptr(),))
+            nbytes = 4 * (e.n + 1) + (4 + el * H) * e.count + el * 2 * e.n * D
+            for name, k, ww in (("forward", e.agg, w),
+                                ("transposed", e.agg_t, wt)):
+                yield (f"{name} H={H} f={f} n={e.n} entries={e.count} "
+                       f"(vec, lanes)={path}",
+                       lambda k=k, ww=ww, h=h: k(ww, h),
+                       lambda k=k, ww=ww, h=h: wsum_plain(k.indptr,
+                                                          k.indices, ww, h),
+                       None, nbytes, ops[H, f])
+
+    def sddmm_cases():
+        for H, f in heads:
+            D = H * f
+            a, b = values((e.n, D)), values((e.n, D))
+            path = heads_shape(f, el, (a.data_ptr(), b.data_ptr()))
+            yield (f"H={H} f={f} edges={e.count} (vec, lanes)={path}",
+                   lambda a=a, b=b, H=H: e.sddmm.ring(a, b, H),
+                   lambda a=a, b=b, H=H: heads_plain(e.sddmm.src,
+                                                     e.sddmm.dst, a, b, H),
+                   None, el * 2 * e.n * D + 8 * e.count + el * H * e.count,
+                   ops[H, f])
+
+    label = f"ring{spec.bits}"
+    return (measure(f"weighted spmm {label} {GAT_CONFIG}", wagg_cases(), None,
+                    PLAIN_CALLS),
+            measure(f"ring sddmm {label} {GAT_CONFIG}", sddmm_cases(), None,
+                    PLAIN_CALLS))
+
+
+def gat_counts(engine) -> dict:
+    """The launch counters of the GAT engine's kernels, both rings."""
+    from cognn_tpu_torch.ops import intmatmul
+    from cognn_tpu_torch.ops import metrics as metric_ops
+
+    e = engine.edges
+    return {"wsum_i64": e.agg.ring_launches + e.agg_t.ring_launches,
+            "wsum_i32": e.agg.ring32_launches + e.agg_t.ring32_launches,
+            "sddmm_heads_i64": e.sddmm.ring_launches,
+            "sddmm_heads_i32": e.sddmm.ring32_launches,
+            "ring_matmul_i64": intmatmul.launches,
+            "ring_matmul_i32": intmatmul.launches_i32,
+            "gcn_metrics": metric_ops.launches}
+
+
+def gat_epoch_counts(engine, name: str, ring: str) -> dict:
+    """The launches an epoch of the eager ``engine``, read from its
+    GAT_EPOCHS_CHECKED epochs: whole in every epoch, the weighted SpMM and
+    the SDDMM launched on its ring (``"i64"`` or ``"i32"``) and not on the
+    other."""
+    gat_reset(engine)
+    out = engine.metrics_host(engine.run_epochs_scan(GAT_EPOCHS_CHECKED))
+    counts = gat_counts(engine)
+    per_epoch = {k: v // GAT_EPOCHS_CHECKED for k, v in counts.items()}
+    other = "i32" if ring == "i64" else "i64"
+    if any(v % GAT_EPOCHS_CHECKED for v in counts.values()) or \
+            not per_epoch[f"wsum_{ring}"] or \
+            not per_epoch[f"sddmm_heads_{ring}"] or \
+            per_epoch[f"wsum_{other}"] or per_epoch[f"sddmm_heads_{other}"]:
+        raise AssertionError(f"gat {name} eager epochs launched {counts} "
+                             f"in {GAT_EPOCHS_CHECKED} epochs")
+    return out, per_epoch
+
+
+def gat_reset(engine) -> None:
+    from cognn_tpu_torch.ops import intmatmul
+    from cognn_tpu_torch.ops import metrics as metric_ops
+
+    for k in (engine.edges.agg, engine.edges.agg_t, engine.edges.sddmm):
+        k.ring_launches = k.ring32_launches = 0
+    intmatmul.launches = intmatmul.launches_i32 = metric_ops.launches = 0
+
+
+def gat_phase(mac_ms: float) -> list:
+    """The GAT of the benchmark's configuration GAT_CONFIG on the card:
+    its kernels held and timed at the cell's shapes (``gat_edge_check``,
+    ``gat_kernel_phase``, both rings), then a graphed engine and an eager
+    one (``cuda_graphs=False``) from the same seed. The eager engine's
+    GAT_EPOCHS_CHECKED epochs give the launches an epoch of each kernel
+    (:func:`gat_epoch_counts`), and an eager engine at GAT_RING32 those of
+    the int32 kernels, the same schedule's; the graphed one runs one epoch
+    (the capture), then
+    GAT_EPOCHS_CHECKED - 1 replays, counted apart: each replay must launch
+    what an eager epoch launches, the weighted SpMM and the SDDMM at least
+    once, one ``graphs.replays`` an epoch (the tracer's counter); losses
+    and revealed leaves ``torch.equal`` to the eager engine's, and so are
+    the logits of a graphed request (captured, then replayed). Then
+    GAT_EPOCHS_TIMED graphed epochs timed (``run_epochs_scan``, ms an
+    epoch), 3 eager ones, and the peak memory. Returns the kernels line's
+    entries."""
+    from benchmark.harness import spec
+    from benchmark.harness.data import draw_graph, seeds_of
+    from benchmark.systems.mpc_gat import build_engine
+    from cognn_tpu_torch.core.ring import RING32, RING64
+    from cognn_tpu_torch.utils import logging_utils as trace
+
+    cfg = spec.config(spec.load_benchmark(), GAT_CONFIG)
+    seeds = seeds_of(0)
+    graph = draw_graph(cfg, seeds.graph)
+    cuda = torch.device("cuda")
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    graphed = build_engine(cfg, graph, seeds, cuda)
+    print(f"setup {GAT_CONFIG}: {time.perf_counter() - t0:.1f} s, "
+          f"P={graphed.P} V={graphed.plan.V} heads={graphed.heads} "
+          f"f={graphed.head_dim} entries={graphed.edges.count}", flush=True)
+    gat_edge_check()
+    wagg, sddmm = gat_kernel_phase(graphed, RING64, mac_ms)
+    wagg32, sddmm32 = gat_kernel_phase(graphed, RING32, mac_ms)
+
+    eager = build_engine(cfg, graph, seeds, cuda, cuda_graphs=False)
+    want, per_epoch = gat_epoch_counts(eager, "int64", "i64")
+    eager32 = build_engine(cfg, graph, seeds, cuda, ring=GAT_RING32,
+                           cuda_graphs=False)
+    per_epoch32 = gat_epoch_counts(eager32, f"ring {GAT_RING32}", "i32")[1]
+    del eager32
+    if [per_epoch32[f"{k}_i32"] for k in GAT_RINGED] != \
+            [per_epoch[f"{k}_i64"] for k in GAT_RINGED]:
+        raise AssertionError(f"gat: an int32 epoch launches {per_epoch32}, "
+                             f"an int64 one {per_epoch}")
+    first = graphed.metrics_host(graphed.run_epochs_scan(1))
+    gat_reset(graphed)
+    replays = GAT_EPOCHS_CHECKED - 1
+    with trace.tracing():
+        trace.reset()
+        rest = graphed.metrics_host(graphed.run_epochs_scan(replays))
+        counters = trace.snapshot()["counters"]
+        trace.reset()
+    got_counts = gat_counts(graphed)
+    if got_counts != {k: v * replays for k, v in per_epoch.items()} or \
+            counters.get("graphs.replays") != replays:
+        raise AssertionError(f"gat graphed: {got_counts} and counters "
+                             f"{counters} in {replays} replays; an eager "
+                             f"epoch launches {per_epoch}")
+    for key in want:
+        got = np.concatenate([first[key], rest[key]], axis=1)
+        if not np.array_equal(got, want[key]):
+            raise AssertionError(f"gat graphed {key} {got} != eager "
+                                 f"{want[key]}")
+    for i, (a, b) in enumerate(zip(graphed.reveal_weights(),
+                                   eager.reveal_weights())):
+        held(f"gat leaf {i} graphed against eager", a, b, None)
+    want_z = eager.forward()[0]
+    for call in ("capture", "replay"):
+        held(f"gat forward graphed ({call}) against eager",
+             graphed.forward()[0], want_z, None)
+    print(f"gat {GAT_CONFIG}: an epoch launches {per_epoch} (ring "
+          f"{GAT_RING32}: {per_epoch32}), graphed as eager ({replays} "
+          f"replays, graphs.replays "
+          f"{counters.get('graphs.replays')}); losses and leaves equal; "
+          f"losses {want['loss'][:, -1].tolist()}", flush=True)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graphed.metrics_host(graphed.run_epochs_scan(GAT_EPOCHS_TIMED))
+    graphed_ms = (time.perf_counter() - t0) * 1e3 / GAT_EPOCHS_TIMED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager.metrics_host(eager.run_epochs_scan(3))
+    eager_ms = (time.perf_counter() - t0) * 1e3 / 3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"gat {GAT_CONFIG}: {graphed_ms!r} ms an epoch graphed "
+          f"({GAT_EPOCHS_TIMED} epochs, one dispatch), {eager_ms!r} eager; "
+          f"peak memory {peak} B (both engines and the kernel checks)",
+          flush=True)
+    shape = (f"{GAT_CONFIG}: heads {graphed.heads} of {graphed.head_dim} "
+             f"over {graphed.edges.count} entries")
+    del graphed, eager
+    torch.cuda.empty_cache()
+    counts = {"i64": per_epoch, "i32": per_epoch32}
+    return [{
+        "name": f"spmm_csr_wsum_{ring}[{GAT_CONFIG}]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/spmm.cu",
+        "replaces": GAT_REPLACES,
+        "jax_path": "none",
+        "launches_per_epoch": counts[ring][f"wsum_{ring}"],
+        **({"graphed_ms_per_epoch": graphed_ms} if ring == "i64" else {}),
+        "shape": f"{shape}, forward and transposed, random full-range "
+                 f"values",
+        **stats,
+    } for ring, stats in (("i64", wagg), ("i32", wagg32))] + [{
+        "name": f"sddmm_heads_{ring}[{GAT_CONFIG}]",
+        "route": "cuda",
+        "source": "cognn_tpu_torch/csrc/sddmm.cu",
+        "replaces": SDDMM_REPLACES,
+        "jax_path": "none: no JAX engine launches K5",
+        "launches_per_epoch": counts[ring][f"sddmm_heads_{ring}"],
+        "shape": f"{shape}, random full-range values",
+        **stats,
+    } for ring, stats in (("i64", sddmm), ("i32", sddmm32))]
+
+
 def prologue() -> float:
     """The card's name and power limit, the kernels built (one compiler a
     source, all at once), and the integer multiply rate; returns the time
@@ -4333,6 +4628,7 @@ def main(argv) -> None:
                 **dense["k3"],
             })
 
+    kernels += gat_phase(mac_ms)
     kernels += citeseer_phase(mac_ms)
 
     # the sharded mode: one process a party

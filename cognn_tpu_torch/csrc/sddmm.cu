@@ -190,6 +190,163 @@ bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
+
+// Ring multi-head instantiation (the backward of the GAT layers' attention-
+// weighted aggregation, cognn_tpu_torch/mpc/gat.py): per edge and head, over
+// rows of d = heads * f ring elements, head-major,
+//
+//   out[e, h] = sum over k < f of a[src_e, h*f + k] * b[dst_e, h*f + k]
+//
+// mod 2^64 (uint64_t) or 2^32 (uint32_t), out [n_edges, heads]. The operands
+// are reconstructed ring values (a shared x shared product: the engine
+// truncates and re-shares the result). Bound by bytes as edge_dot_f32.
+//
+// A warp takes kBatch edges at a time; each edge's heads are spread over the
+// warp, GF lanes a head (the power of two covering f in loads of W
+// elements) and 32 / GF heads a pass, so at f = 8 (GF = 4 at W = 2 words)
+// one pass covers the 8 heads of a 64-wide row in 16-byte loads, the warp's
+// loads of an edge one contiguous 512-byte row; at f = 3 (W = 1, GF = 4) a
+// pass covers 8 heads with 24 of the 32 lanes. All lanes load the edges'
+// index pairs (one address a warp: one transaction), then issue all of the
+// batch's row loads before the products; a butterfly of shuffles over the
+// GF lanes sums each head, whose first lane writes it. Deterministic: no
+// atomics; ring sums wrap.
+
+template <int W>
+struct RingLoad;
+template <>
+struct RingLoad<1> {
+  template <typename T>
+  __device__ static void run(const T* p, T (&x)[1]) {
+    x[0] = *p;
+  }
+};
+template <>
+struct RingLoad<2> {
+  __device__ static void run(const uint64_t* p, uint64_t (&x)[2]) {
+    const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  }
+};
+template <>
+struct RingLoad<4> {
+  __device__ static void run(const uint32_t* p, uint32_t (&x)[4]) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+    x[2] = v.z;
+    x[3] = v.w;
+  }
+};
+
+template <typename T, int W, int GF>
+__global__ void __launch_bounds__(kThreads)
+edge_dot_heads(const int32_t* __restrict__ src,
+               const int32_t* __restrict__ dst, const T* __restrict__ a,
+               const T* __restrict__ b, T* __restrict__ out, int64_t n_edges,
+               int heads, int f) {
+  constexpr int HP = 32 / GF;  // heads a pass
+  const int lane = threadIdx.x % 32;
+  const int hl = lane / GF;  // this lane's head in a pass
+  const int k0 = lane % GF * W;  // its first element of the head
+  const int64_t base =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / 32 *
+      kBatch;
+  if (base >= n_edges) return;  // the whole warp
+  const int d = heads * f;
+  int es[kBatch], ed[kBatch];
+#pragma unroll
+  for (int j = 0; j < kBatch; ++j) {
+    const bool ok = base + j < n_edges;
+    es[j] = ok ? src[base + j] : 0;
+    ed[j] = ok ? dst[base + j] : 0;
+  }
+  // the loop runs alike in every lane (the shuffles need all of them)
+  for (int h0 = 0; h0 < heads; h0 += HP) {
+    const int h = h0 + hl;
+    const bool live = h < heads && k0 < f;
+    const int c = h * f + k0;
+    T x[kBatch][W], y[kBatch][W];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      if (live && base + j < n_edges) {
+        RingLoad<W>::run(a + static_cast<int64_t>(es[j]) * d + c, x[j]);
+        RingLoad<W>::run(b + static_cast<int64_t>(ed[j]) * d + c, y[j]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < W; ++i) x[j][i] = y[j][i] = T(0);
+      }
+    }
+    T acc[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      acc[j] = T(0);
+#pragma unroll
+      for (int i = 0; i < W; ++i) acc[j] += x[j][i] * y[j][i];
+    }
+#pragma unroll
+    for (int off = GF / 2; off > 0; off /= 2) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        acc[j] += __shfl_xor_sync(~0u, acc[j], off);
+      }
+    }
+    if (live && k0 == 0) {
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (base + j < n_edges) out[(base + j) * heads + h] = acc[j];
+      }
+    }
+  }
+}
+
+template <typename T, int W>
+using HeadsKernel = void (*)(const int32_t*, const int32_t*, const T*,
+                             const T*, T*, int64_t, int, int);
+
+// the instantiation of GF = lanes (1, 2, 4, ..., 32), or nullptr
+template <typename T, int W>
+HeadsKernel<T, W> heads_with_lanes(int lanes) {
+  switch (lanes) {
+    case 1:
+      return edge_dot_heads<T, W, 1>;
+    case 2:
+      return edge_dot_heads<T, W, 2>;
+    case 4:
+      return edge_dot_heads<T, W, 4>;
+    case 8:
+      return edge_dot_heads<T, W, 8>;
+    case 16:
+      return edge_dot_heads<T, W, 16>;
+    case 32:
+      return edge_dot_heads<T, W, 32>;
+    default:
+      return nullptr;
+  }
+}
+
+// Refuses (cudaErrorInvalidValue) a `lanes` with no instantiation, lanes
+// that do not cover f in loads of W, and a vector load that would straddle
+// two heads or not be 16-byte aligned at every row start of a and b.
+template <typename T, int W>
+int launch_heads(int lanes, const int32_t* src, const int32_t* dst,
+                 const T* a, const T* b, T* out, int64_t n_edges, int heads,
+                 int f, cudaStream_t s) {
+  if (heads < 1 || f < 1 || lanes * W < f ||
+      (W > 1 && (f % W != 0 || !aligned16(a) || !aligned16(b)))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const HeadsKernel<T, W> kernel = heads_with_lanes<T, W>(lanes);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t threads = (n_edges + kBatch - 1) / kBatch * 32;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  kernel<<<blocks, kThreads, 0, s>>>(src, dst, a, b, out, n_edges, heads,
+                                     f);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(): a launch the CUDA
@@ -215,4 +372,48 @@ extern "C" int cognn_sddmm_f32(const int32_t* src, const int32_t* dst,
       static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   kernel<<<blocks, kThreads, 0, stream>>>(src, dst, a, b, out, n_edges, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The ring multi-head instantiation: a [*, heads * f] and b [*, heads * f]
+// int64 ring rows -> out [n_edges, heads]; `vec` is 1 or 2 words a load and
+// `lanes` (1, 2, ..., 32) the lanes a head. Same launch contract.
+extern "C" int cognn_sddmm_heads_i64(const int32_t* src, const int32_t* dst,
+                                     const int64_t* a, const int64_t* b,
+                                     int64_t* out, int64_t n_edges,
+                                     int heads, int f, int vec, int lanes,
+                                     cudaStream_t s) {
+  const auto* x = reinterpret_cast<const uint64_t*>(a);
+  const auto* y = reinterpret_cast<const uint64_t*>(b);
+  auto* z = reinterpret_cast<uint64_t*>(out);
+  switch (vec) {
+    case 1:
+      return launch_heads<uint64_t, 1>(lanes, src, dst, x, y, z, n_edges,
+                                       heads, f, s);
+    case 2:
+      return launch_heads<uint64_t, 2>(lanes, src, dst, x, y, z, n_edges,
+                                       heads, f, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Its 32-bit ring instantiation (RING32); `vec` is 1 or 4 words a load.
+extern "C" int cognn_sddmm_heads_i32(const int32_t* src, const int32_t* dst,
+                                     const int32_t* a, const int32_t* b,
+                                     int32_t* out, int64_t n_edges,
+                                     int heads, int f, int vec, int lanes,
+                                     cudaStream_t s) {
+  const auto* x = reinterpret_cast<const uint32_t*>(a);
+  const auto* y = reinterpret_cast<const uint32_t*>(b);
+  auto* z = reinterpret_cast<uint32_t*>(out);
+  switch (vec) {
+    case 1:
+      return launch_heads<uint32_t, 1>(lanes, src, dst, x, y, z, n_edges,
+                                       heads, f, s);
+    case 4:
+      return launch_heads<uint32_t, 4>(lanes, src, dst, x, y, z, n_edges,
+                                       heads, f, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

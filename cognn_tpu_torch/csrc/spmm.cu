@@ -280,6 +280,144 @@ int dispatch(int lanes, const int32_t* indptr, const int32_t* indices,
   }
 }
 
+
+// Attention-weighted instantiation (the GAT layers of cognn_tpu_torch/mpc/
+// gat.py): one ring tensor, not two shares, and a ring weight an entry and
+// a head in place of the count. Rows are d = heads * f elements, head-major:
+//
+//   out[d_row, c] = sum over e in [indptr[d_row], indptr[d_row+1]) of
+//                   w[e, c / f] * h[indices[e], c]        (mod 2^64 or 2^32)
+//
+// The weights are the reconstructed attention coefficients and h the
+// reconstructed values of the layer (a shared x shared product: the engine
+// truncates and re-shares the result, as it does K3's). One entry an edge
+// (a repeated edge is two entries), so the CSR has no counts. No TPU kernel
+// is replaced: the JAX package has no attention model (its K5,
+// cognn_tpu/ops/pallas_sddmm.py, was written for one).
+//
+// Bound on the H100: bytes, as csr_gather_sum: each entry reads its index,
+// its H weights and the d-wide row it names, and a row writes d elements;
+// 3 IMADs a 64-bit multiply-add (1 at 32 bits) stay far under the bytes'
+// time. The design is csr_gather_sum's (groups of GC lanes across the row,
+// GE entry slots, batches of kBatch entries whose loads are all issued
+// before any sum, a fixed shuffle tree over the slots, no atomics), with
+// S = 1 and each element's weight loaded beside its row element: an entry's
+// H weights are one 64-byte line (H = 8), read by every lane of the group.
+
+template <typename T, int V, int GC>
+__global__ void __launch_bounds__(kThreads)
+csr_gather_wsum(const int32_t* __restrict__ indptr,
+                const int32_t* __restrict__ indices,
+                const T* __restrict__ w, const T* __restrict__ h,
+                T* __restrict__ out, int n_dst, int heads, int f) {
+  constexpr int GE = kSlots<GC>;
+  constexpr int G = GC * GE;
+  constexpr int kRowBatch = GE * kBatch;
+  const int d = heads * f;
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / G;
+  if (row >= n_dst) return;  // the whole group
+  const int g = threadIdx.x % G;
+  const int slot = g / GC;
+  const unsigned group = (G == 32 ? ~0u : (1u << G % 32) - 1u)
+                         << (threadIdx.x % 32 / G * G);
+  const int beg = indptr[row];
+  const int end = indptr[row + 1];
+  for (int c0 = static_cast<int>(blockIdx.y) * (GC * V); c0 < d;
+       c0 += static_cast<int>(gridDim.y) * (GC * V)) {
+    const int c = c0 + g % GC * V;
+    const bool live = c < d;
+    int head[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) head[v] = live ? (c + v) / f : 0;
+    T acc[V] = {};
+    for (int b = beg; b < end; b += kRowBatch) {
+      int src[kBatch];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = b + j * GE + slot;
+        src[j] = e < end ? indices[e] : 0;
+      }
+      T x[kBatch][V], a[kBatch][V];
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        const int e = b + j * GE + slot;
+        if (live && e < end) {
+          load_row(h + static_cast<int64_t>(src[j]) * d + c, x[j]);
+#pragma unroll
+          for (int v = 0; v < V; ++v) {
+            a[j][v] = w[static_cast<int64_t>(e) * heads + head[v]];
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kBatch; ++j) {
+        if (live && b + j * GE + slot < end) {
+#pragma unroll
+          for (int v = 0; v < V; ++v) acc[v] += a[j][v] * x[j][v];
+        }
+      }
+    }
+#pragma unroll
+    for (int off = GC; off < G; off *= 2) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        acc[v] += __shfl_xor_sync(group, acc[v], off, G);
+      }
+    }
+    if (live && slot == 0) store_row(out + row * d + c, acc);
+  }
+}
+
+template <typename T, int V, int GC>
+int launch_wsum(const int32_t* indptr, const int32_t* indices, const T* w,
+                const T* h, T* out, int n_dst, int heads, int f,
+                cudaStream_t stream) {
+  const int64_t threads = static_cast<int64_t>(n_dst) * GC * kSlots<GC>;
+  const unsigned blocks =
+      static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const int chunks = (heads * f + GC * V - 1) / (GC * V);
+  const dim3 grid(blocks, chunks < 1 ? 1 : chunks > 65535 ? 65535 : chunks);
+  csr_gather_wsum<T, V, GC><<<grid, kThreads, 0, stream>>>(
+      indptr, indices, w, h, out, n_dst, heads, f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As dispatch: the instantiation for `lanes`, refusing a vector load that
+// would not be 16-byte aligned at every row start of h and out.
+template <typename T, int V>
+int dispatch_wsum(int lanes, const int32_t* indptr, const int32_t* indices,
+                  const T* w, const T* h, T* out, int n_dst, int heads,
+                  int f, cudaStream_t stream) {
+  if (heads < 1 || f < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (V > 1 &&
+      ((heads * f) % V != 0 || !aligned16(h) || !aligned16(out))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  switch (lanes) {
+    case 1:
+      return launch_wsum<T, V, 1>(indptr, indices, w, h, out, n_dst, heads,
+                                  f, stream);
+    case 2:
+      return launch_wsum<T, V, 2>(indptr, indices, w, h, out, n_dst, heads,
+                                  f, stream);
+    case 4:
+      return launch_wsum<T, V, 4>(indptr, indices, w, h, out, n_dst, heads,
+                                  f, stream);
+    case 8:
+      return launch_wsum<T, V, 8>(indptr, indices, w, h, out, n_dst, heads,
+                                  f, stream);
+    case 16:
+      return launch_wsum<T, V, 16>(indptr, indices, w, h, out, n_dst, heads,
+                                   f, stream);
+    case 32:
+      return launch_wsum<T, V, 32>(indptr, indices, w, h, out, n_dst, heads,
+                                   f, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Launches on `stream` and returns cudaGetLastError(): a launch the CUDA
@@ -351,6 +489,52 @@ extern "C" int cognn_spmm_csr_i32(const int32_t* indptr,
     case 4:
       return dispatch<uint32_t, 2, 4>(lanes, indptr, indices, c, x, y,
                                       h_share, out_share, n_dst, d, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The attention-weighted instantiation over one ring tensor h [*, heads * f]
+// rows into out [n_dst, heads * f], weights w [entries, heads]; `vec` is 1
+// or 2 words a load; same launch contract.
+extern "C" int cognn_spmm_csr_wsum_i64(const int32_t* indptr,
+                                       const int32_t* indices,
+                                       const int64_t* w, const int64_t* h,
+                                       int64_t* out, int n_dst, int heads,
+                                       int f, int vec, int lanes,
+                                       cudaStream_t stream) {
+  const auto* a = reinterpret_cast<const uint64_t*>(w);
+  const auto* x = reinterpret_cast<const uint64_t*>(h);
+  auto* y = reinterpret_cast<uint64_t*>(out);
+  switch (vec) {
+    case 1:
+      return dispatch_wsum<uint64_t, 1>(lanes, indptr, indices, a, x, y,
+                                        n_dst, heads, f, stream);
+    case 2:
+      return dispatch_wsum<uint64_t, 2>(lanes, indptr, indices, a, x, y,
+                                        n_dst, heads, f, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Its 32-bit ring instantiation (RING32); `vec` is 1 or 4 words a load.
+extern "C" int cognn_spmm_csr_wsum_i32(const int32_t* indptr,
+                                       const int32_t* indices,
+                                       const int32_t* w, const int32_t* h,
+                                       int32_t* out, int n_dst, int heads,
+                                       int f, int vec, int lanes,
+                                       cudaStream_t stream) {
+  const auto* a = reinterpret_cast<const uint32_t*>(w);
+  const auto* x = reinterpret_cast<const uint32_t*>(h);
+  auto* y = reinterpret_cast<uint32_t*>(out);
+  switch (vec) {
+    case 1:
+      return dispatch_wsum<uint32_t, 1>(lanes, indptr, indices, a, x, y,
+                                        n_dst, heads, f, stream);
+    case 4:
+      return dispatch_wsum<uint32_t, 4>(lanes, indptr, indices, a, x, y,
+                                        n_dst, heads, f, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -437,7 +437,55 @@ def forward_widths(param: GNNParam, variant: str,
     return list(dims[1:])
 
 
-class GasEngine:
+class GraphedEpochs:
+    """The epoch loops of an engine whose epochs run through its CUDA
+    graphs (:class:`GasEngine` and the secret-shared engines). A subclass
+    sets ``_graphs`` and defines ``_epoch_step``."""
+
+    _graphs: EngineGraphs
+
+    def _epoch_step(self) -> Dict[str, torch.Tensor]:
+        """One epoch, the new weights written into the weight tensors in
+        place after all reads (a graph's static inputs); returns its
+        forward's per-party metrics."""
+        raise NotImplementedError
+
+    def _epoch(self) -> Dict[str, torch.Tensor]:
+        """One epoch through the graphs: a replay's metrics are the graph's
+        own, valid until the next epoch."""
+        return self._graphs.run("epoch", self._epoch_step)
+
+    @torch.no_grad()
+    def run_epoch(self) -> Dict[str, torch.Tensor]:
+        """One training epoch; returns its forward's per-party metrics."""
+        return self._graphs.call("epoch", self._epoch_step)
+
+    @torch.no_grad()
+    def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns the last one's metrics."""
+        for _ in range(n - 1):
+            self._epoch()
+        return self.run_epoch() if n > 0 else None
+
+    @torch.no_grad()
+    def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
+        """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
+        (sharded [1, n]) as the JAX package's scan returns them."""
+        return stack_epochs(self._epoch, n)
+
+    @staticmethod
+    def metrics_host(metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, np.ndarray]:
+        """Fetch a metrics dict to host numpy."""
+        return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
+
+    # this process's parties' metrics (cognn_tpu/engine/gas.py:889-900):
+    # every tensor of an engine is local, so it is metrics_host; sharded,
+    # each metric holds this party's entry only
+    metrics_local = metrics_host
+
+
+class GasEngine(GraphedEpochs):
     """GAS schedules over a :class:`DevicePlan`, parties stacked on one
     device (``mode="stacked"``) or one process a party (``mode="sharded"``,
     with ``group``, this process's :class:`PartyGroup`).
@@ -715,40 +763,6 @@ class GasEngine:
         for w, new in zip(self._weights, weights):
             w.copy_(new)
         return metrics
-
-    def _epoch(self) -> Dict[str, torch.Tensor]:
-        """One epoch through the graphs: a replay's metrics are the graph's
-        own, valid until the next epoch."""
-        return self._graphs.run("epoch", self._epoch_step)
-
-    @torch.no_grad()
-    def run_epoch(self) -> Dict[str, torch.Tensor]:
-        """One training epoch; returns its forward's per-party metrics."""
-        return self._graphs.call("epoch", self._epoch_step)
-
-    @torch.no_grad()
-    def run_epochs(self, n: int) -> Dict[str, torch.Tensor]:
-        """``n`` epochs; returns the last one's metrics."""
-        for _ in range(n - 1):
-            self._epoch()
-        return self.run_epoch() if n > 0 else None
-
-    @torch.no_grad()
-    def run_epochs_scan(self, n: int) -> Dict[str, torch.Tensor]:
-        """``n`` epochs; returns every epoch's metrics, each shaped [P, n]
-        (sharded [1, n]) as the JAX package's scan returns them."""
-        return stack_epochs(self._epoch, n)
-
-    @staticmethod
-    def metrics_host(metrics: Dict[str, torch.Tensor]
-                     ) -> Dict[str, np.ndarray]:
-        """Fetch a metrics dict to host numpy."""
-        return {k: v.detach().cpu().numpy() for k, v in metrics.items()}
-
-    # this process's parties' metrics (cognn_tpu/engine/gas.py:889-900):
-    # every tensor of an engine is local, so it is metrics_host; sharded,
-    # each metric holds this party's entry only
-    metrics_local = metrics_host
 
     @torch.no_grad()
     def forward(self):

@@ -88,8 +88,13 @@ DENSE_ADJ_BUDGET = 1 << 28  # elements of dense_adj (1 GiB as f32)
 
 def build_device_plan(graphs: List[PartyGraph], *, lane: int = 8,
                       dense: Optional[bool] = None,
-                      reorder: bool = False) -> DevicePlan:
+                      reorder: bool = False,
+                      degree_scale: bool = True) -> DevicePlan:
     """``lane`` rounds padded dims up.
+
+    ``degree_scale``: the GCN's load-time feature scale (deg+1)^-1/2
+    (optimize-gcn/gcn.h:823-833); False keeps the features as given (the
+    GAT's input, ``mpc/gat.py``).
 
     ``dense``: build the dense blocked adjacency ``dense_adj`` (None: not
     built; the dense backend can also derive its matrix from the index
@@ -139,9 +144,9 @@ def build_device_plan(graphs: List[PartyGraph], *, lane: int = 8,
                 D = g.features.shape[1]
                 feats = np.zeros((P, V, D), np.float32)
             # load-time normalization (optimize-gcn/gcn.h:823-833)
-            feats[p, :n] = (g.features * np.power(
-                g.in_deg.astype(np.float64) + 1.0, -0.5)[:, None]
-            ).astype(np.float32)
+            scale = (np.power(g.in_deg.astype(np.float64) + 1.0, -0.5)
+                     if degree_scale else np.ones(n))
+            feats[p, :n] = (g.features * scale[:, None]).astype(np.float32)
 
         lb = g.blocks[g.tile_index]
         k = lb.num_slots

@@ -98,7 +98,7 @@ from cognn_tpu_torch.config import GNNParam
 from cognn_tpu_torch.core.fixedpoint import FixedPointSpec
 from cognn_tpu_torch.core.ring import ring_sum
 from cognn_tpu_torch.engine.gas import (
-    GasEngine,
+    GraphedEpochs,
     _aggregation_operands,
     _Comm,
     _plan_arrays,
@@ -150,7 +150,82 @@ def _party_seed(prng_seed: int, rank: int) -> int:
         1, np.uint64)[0])
 
 
-class MpcGasEngine:
+class MpcEngineBase(GraphedEpochs):
+    """What the secret-shared engines share (the GCN's :class:`MpcGasEngine`
+    and the GAT's :class:`~cognn_tpu_torch.mpc.gat.MpcGatEngine`): the
+    leaves' shares, handed out as copies; a request through the graphs; the
+    prediction Apply; each leaf's SGD step and cross-party weight mean; the
+    epoch loops of :class:`GraphedEpochs`. A subclass sets the attributes
+    annotated here and ``weights_sh``, and defines ``_forward_body`` (a
+    request: revealed logits, prob, metrics) and ``_epoch_step``."""
+
+    param: GNNParam  # num_labels, learning_rate
+    proto: Protocol
+    P: int  # every party: the weight mean's 1/P
+    comm: _MpcComm | _MpcShardedComm
+    inv_train_fp: torch.Tensor  # each held party's encoded 1/train_n
+    _gen: torch.Generator  # the share randomness
+
+    @property
+    def weights_sh(self) -> List[torch.Tensor]:
+        """The leaves' shares (the GCN's ``[2, P, d_in, d_out]`` a layer):
+        copies, which no later epoch changes."""
+        return [w.clone() for w in self._weights_sh]
+
+    @weights_sh.setter
+    def weights_sh(self, weights_sh) -> None:
+        """Replace the weight shares by copies of ``weights_sh`` and drop
+        the captured graphs, which read the old ones."""
+        self._weights_sh = [w.clone(memory_format=torch.contiguous_format)
+                            for w in weights_sh]
+        self._graphs.clear()
+
+    @torch.no_grad()
+    def reveal_weights(self) -> List[torch.Tensor]:
+        return [self.proto.reveal(w) for w in self._weights_sh]
+
+    @torch.no_grad()
+    def forward(self):
+        """Full-graph inference in share space: (revealed logits f32
+        [P, V, C], prob, metrics)."""
+        with span("engine.forward"):
+            return self._graphs.call("forward", self._forward_body)
+
+    def _forward_body(self):
+        raise NotImplementedError
+
+    def _predict_apply(self, arr: _PlanArrays, z_sh: torch.Tensor):
+        """Prediction Apply (cognn_tpu/mpc/engine.py:1115-1125): reveal,
+        softmax and the plaintext metrics; shares of p - y zeroed outside
+        the local train split (gcn.h:636-641)."""
+        with phase("apply"):
+            y_hot = torch.nn.functional.one_hot(arr.labels,
+                                                self.param.num_labels)
+            prob, pm_sh = self.proto.softmax_pred(self._gen, z_sh, y_hot)
+            pm_sh = self.proto.mask_mul(pm_sh, arr.train_mask[..., None])
+            return pm_sh, gcn_metrics(arr, prob)
+
+    def _weight_mean(self, w_sh: torch.Tensor) -> torch.Tensor:
+        """Cross-party share sum (wrapping) and a public 1/P scale,
+        one replica per party again (gcn.h:747-802)."""
+        if self.P == 1:
+            return w_sh
+        with phase("apply"):
+            total = self.comm.weight_total(w_sh)
+            return self.proto.scale_const(self._gen, total,
+                                          1.0 / self.P).expand_as(w_sh)
+
+    def _sgd_step(self, w_sh: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+        """SGD on a layer's weight shares with the weight gradient ``d``:
+        the per-party scale 1/train_n and the learning rate, each with
+        truncation (gcn.h:667-678), then the weight mean."""
+        proto, gen = self.proto, self._gen
+        d = proto.scale_rows(gen, d, self.inv_train_fp[:, None, None])
+        step = proto.scale_const(gen, d, float(self.param.learning_rate))
+        return self._weight_mean(proto.sub(w_sh, step))
+
+
+class MpcGasEngine(MpcEngineBase):
     """Secret-shared GAS engine over a :class:`DevicePlan`, parties stacked
     on one device; ``variant``: "opt" or "opt_inference" (CoGNN-Opt),
     "unopt" or "unopt_inference" (CoGNN); the two of a schedule run the
@@ -300,20 +375,6 @@ class MpcGasEngine:
         if self.variant in ("opt", "unopt"):
             self.x0_prep_bwd = self.x0_prep_bwd.contiguous()
 
-    @property
-    def weights_sh(self) -> List[torch.Tensor]:
-        """The weight shares, ``[2, P, d_in, d_out]`` a layer: copies, which
-        no later epoch changes."""
-        return [w.clone() for w in self._weights_sh]
-
-    @weights_sh.setter
-    def weights_sh(self, weights_sh) -> None:
-        """Replace the weight shares by copies of ``weights_sh`` and drop
-        the captured graphs, which read the old ones."""
-        self._weights_sh = [w.clone(memory_format=torch.contiguous_format)
-                            for w in weights_sh]
-        self._graphs.clear()
-
     # ------------------------------------------------------------------
     def _scale_rows(self, sh: torch.Tensor,
                     scalars_fp: torch.Tensor) -> torch.Tensor:
@@ -392,13 +453,6 @@ class MpcGasEngine:
             return self._scale_rows(agg, self.n0_fp) if dest_scale else agg
 
     # ------------------------------------------------------------------
-    @torch.no_grad()
-    def forward(self):
-        """Full-graph inference in share space: (revealed logits f32
-        [P, V, C], prob, metrics)."""
-        with span("engine.forward"):
-            return self._graphs.call("forward", self._forward_body)
-
     def _forward_body(self):
         proto, gen = self.proto, self._gen
         h = self.x0_sh
@@ -431,27 +485,6 @@ class MpcGasEngine:
             h = self._scale_rows(h, self.n0_fp)
         agg = self._aggregate(self.arr, h, dest_scale=True)
         return agg, self.proto.matmul(self._gen, agg, w)
-
-    def _predict_apply(self, arr: _PlanArrays, z_sh: torch.Tensor):
-        """Prediction Apply (cognn_tpu/mpc/engine.py:1115-1125): reveal,
-        softmax and the plaintext metrics; shares of p - y zeroed outside
-        the local train split (gcn.h:636-641)."""
-        with phase("apply"):
-            y_hot = torch.nn.functional.one_hot(arr.labels,
-                                                self.param.num_labels)
-            prob, pm_sh = self.proto.softmax_pred(self._gen, z_sh, y_hot)
-            pm_sh = self.proto.mask_mul(pm_sh, arr.train_mask[..., None])
-            return pm_sh, gcn_metrics(arr, prob)
-
-    def _weight_mean(self, w_sh: torch.Tensor) -> torch.Tensor:
-        """Cross-party share sum (wrapping) and a public 1/P scale,
-        one replica per party again (gcn.h:747-802)."""
-        if self.P == 1:
-            return w_sh
-        with phase("apply"):
-            total = self.comm.weight_total(w_sh)
-            return self.proto.scale_const(self._gen, total,
-                                          1.0 / self.P).expand_as(w_sh)
 
     def _epoch_opt(self):
         """One CoGNN-Opt training epoch on shares, 3L phases
@@ -504,15 +537,6 @@ class MpcGasEngine:
                 h = g
         return weights, metrics
 
-    def _sgd_step(self, w_sh: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
-        """SGD on a layer's weight shares with the weight gradient ``d``:
-        the per-party scale 1/train_n and the learning rate, each with
-        truncation (gcn.h:667-678), then the weight mean."""
-        proto, gen = self.proto, self._gen
-        d = proto.scale_rows(gen, d, self.inv_train_fp[:, None, None])
-        step = proto.scale_const(gen, d, float(self.param.learning_rate))
-        return self._weight_mean(proto.sub(w_sh, step))
-
     def _epoch_unopt(self):
         """One CoGNN (unopt) training epoch on shares, 2L phases
         (cognn_tpu/mpc/engine.py:1234-1290); returns the new weight shares
@@ -560,17 +584,3 @@ class MpcGasEngine:
             for w, new in zip(self._weights_sh, weights):
                 w.copy_(new)
         return metrics
-
-    # one epoch, n epochs, n epochs stacked: the plaintext engine's, on
-    # this engine's _epoch_step (metrics from the revealed prediction)
-    _epoch = GasEngine._epoch
-    run_epoch = GasEngine.run_epoch
-    run_epochs = GasEngine.run_epochs
-    run_epochs_scan = GasEngine.run_epochs_scan
-
-    @torch.no_grad()
-    def reveal_weights(self) -> List[torch.Tensor]:
-        return [self.proto.reveal(w) for w in self._weights_sh]
-
-    metrics_host = staticmethod(GasEngine.metrics_host)
-    metrics_local = staticmethod(GasEngine.metrics_local)

@@ -163,6 +163,14 @@ class Protocol:
             prod = ring_matmul(prep_a, self.reconstruct_ring(b_sh))  # 2f
             return self._trunc_ring(gen, prod, self.f)
 
+    def trunc_product(self, gen: torch.Generator,
+                      prod: torch.Tensor) -> torch.Tensor:
+        """A product at the 2f-bit scale formed on reconstructed operands
+        (a kernel's output, an elementwise product of two reconstructed
+        tensors), truncated and re-shared: the step after K3 in
+        :meth:`matmul_prepped`."""
+        return self._trunc_ring(gen, prod, self.f)
+
     def scale_rows(self, gen: torch.Generator, sh: torch.Tensor,
                    scalars_fp: torch.Tensor) -> torch.Tensor:
         """Multiply by public fixed-point scalars broadcast against the

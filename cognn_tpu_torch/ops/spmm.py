@@ -22,6 +22,11 @@ instantiation, which wraps mod 2^32.
 :class:`Spmm` is built once from an edge list. Called on a CUDA tensor it
 launches a kernel (and raises if the launch fails); on a CPU tensor it runs
 :func:`spmm_plain`, which the tests compare against the JAX package.
+
+:class:`WeightedSpmm` is the attention-weighted ring instantiation of the
+GAT layers (``mpc/gat.py``): one ring tensor, one entry an edge, and a ring
+weight an entry and a head in place of the count; :func:`wsum_plain` is its
+plain version.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ import numpy as np
 import torch
 
 from cognn_tpu_torch.ops import _build
-from cognn_tpu_torch.ops.bcsr import build_csr_by_dst
+from cognn_tpu_torch.ops.bcsr import build_csr_by_dst, edge_arrays
+from cognn_tpu_torch.utils import logging_utils as trace
 
 
 def bind(lib: ctypes.CDLL) -> tuple:
@@ -54,6 +60,19 @@ def bind(lib: ctypes.CDLL) -> tuple:
 @functools.cache
 def _kernels() -> tuple:
     return bind(_build.load("spmm"))
+
+
+@functools.cache
+def _wsum_kernels() -> dict:
+    """The attention-weighted entry points by the ring's dtype."""
+    lib = _build.load("spmm")
+    out = {torch.int64: lib.cognn_spmm_csr_wsum_i64,
+           torch.int32: lib.cognn_spmm_csr_wsum_i32}
+    for fn in out.values():
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return out
 
 
 def launch_shape(d: int, elem_bytes: int, ptrs, share_elems=()) -> tuple:
@@ -202,4 +221,79 @@ class Spmm:
             self.ring_launches += 1
         else:
             self.ring32_launches += 1
+        return out
+
+
+def wsum_plain(indptr: torch.Tensor, indices: torch.Tensor, w: torch.Tensor,
+               h: torch.Tensor) -> torch.Tensor:
+    """Plain version of the attention-weighted kernels: ``out[d, k·f + j] =
+    Σ w[e, k]·h[indices[e], k·f + j]`` over the entries ``e`` of
+    destination ``d``, for ``w [entries, H]`` and ``h [n_src, H·f]``; the
+    products and sums wrap mod 2^64 (int64) or 2^32 (int32)."""
+    n_dst = indptr.numel() - 1
+    E, H = w.shape
+    dst = torch.repeat_interleave(
+        torch.arange(n_dst, device=h.device), indptr.diff().to(torch.int64),
+        output_size=E)
+    terms = h.index_select(0, indices).view(E, H, h.shape[1] // H) \
+        * w[:, :, None]
+    return h.new_zeros(n_dst, h.shape[1]).index_add_(0, dst,
+                                                     terms.view(E, -1))
+
+
+class WeightedSpmm:
+    """``out[d, k·f + j] = Σ_e w[e, k]·h[src_e, k·f + j]`` over a fixed edge
+    list sorted by destination, one entry an edge (a repeated edge is two
+    entries), on ring values: a GAT layer's attention-weighted aggregation
+    of its H heads of f features (``w`` the attention coefficients of the
+    entries, in the list's order). Held as destination-sorted CSR on
+    ``device``; ``ring_launches`` and ``ring32_launches`` count the int64
+    and int32 kernels' launches."""
+
+    def __init__(self, src: np.ndarray, dst: np.ndarray, n_src: int,
+                 n_dst: int, device: torch.device):
+        src, dst = edge_arrays(src, dst, n_src, n_dst)
+        if np.any(np.diff(dst) < 0):
+            raise ValueError("the edges must be sorted by destination")
+        indptr = np.zeros(n_dst + 1, np.int32)
+        np.cumsum(np.bincount(dst, minlength=n_dst), out=indptr[1:])
+        self.n_src, self.n_dst, self.nnz = n_src, n_dst, len(src)
+        self.indptr = torch.as_tensor(indptr).to(device)
+        self.indices = torch.as_tensor(src.astype(np.int32)).to(device)
+        self.ring_launches = 0
+        self.ring32_launches = 0
+
+    def __call__(self, w: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+        """w: [nnz, H] and h: [n_src, H·f], both int64 (Z_2^64) or both
+        int32 (Z_2^32), contiguous, on this structure's device -> [n_dst,
+        H·f]."""
+        if h.dtype not in (torch.int64, torch.int32):
+            raise TypeError(f"h must be int64 or int32, got {h.dtype}")
+        dev = self.indptr.device
+        cpu = check_rows(h, dev, h.dtype, self.n_src)
+        check_rows(w, dev, h.dtype, self.nnz, name="w")
+        H = w.shape[1]
+        if H == 0 or h.shape[1] % H:
+            raise ValueError(f"h's width {h.shape[1]} is not {H} heads")
+        if cpu:
+            return wsum_plain(self.indptr, self.indices, w, h)
+        D = h.shape[1]
+        out = torch.empty((self.n_dst, D), dtype=h.dtype, device=h.device)
+        if out.numel() == 0:
+            return out
+        shape = launch_shape(D, h.element_size(),
+                             (h.data_ptr(), out.data_ptr()))
+        with torch.cuda.device(h.device):
+            err = _wsum_kernels()[h.dtype](
+                self.indptr.data_ptr(), self.indices.data_ptr(),
+                w.data_ptr(), h.data_ptr(), out.data_ptr(), self.n_dst, H,
+                D // H, *shape, torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"weighted ring spmm kernel launch failed: "
+                               f"CUDA error {err}")
+        if h.dtype == torch.int64:
+            self.ring_launches += 1
+        else:
+            self.ring32_launches += 1
+        trace.count("gat.wagg.kernel")
         return out
